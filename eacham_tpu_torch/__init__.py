@@ -1,0 +1,16 @@
+"""eacham_tpu_torch — the PyTorch/CUDA port of eacham_tpu for NVIDIA Hopper.
+
+The package mirrors ``eacham_tpu``'s layout module for module; the JAX
+package stays the reference each piece is checked against. Plain tensor
+code is PyTorch; the Pallas kernels of the reference become hand-written
+CUDA kernels under ``csrc/`` (built with nvcc at first use), each with a
+plain PyTorch version beside it.
+
+Entry points (``features.frontend.extract_features``,
+``sfm.pipeline.initialize_sfm``) run on the card by default and raise when
+there is none; pass ``device="cpu"`` to run the plain versions on the CPU.
+"""
+
+import eacham_tpu_torch.fp  # noqa: F401  (fp32 matmul/conv policy)
+
+__version__ = "0.1.0"

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` into its own shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds) and loaded with ``ctypes``. Libraries land in ``_build/`` beside
+this package's sources, named by a hash of the source and the flags, so an
+edited source is rebuilt and a stale library is never loaded. Nothing is
+built at import: the first call that launches a kernel builds it, or
+``build()`` builds a list of sources in parallel up front.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+SOURCES = ("match_pairs",)
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: PATH, then $CUDA_HOME, then PyTorch's guess."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    homes = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
+    try:
+        from torch.utils.cpp_extension import CUDA_HOME
+        homes.append(CUDA_HOME)
+    except ImportError:
+        pass
+    for home in homes:
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build(names=SOURCES) -> dict[str, dict]:
+    """Compile every missing library of ``names``, one nvcc process per
+    source, all started together. Returns {name: {"seconds", "log",
+    "cached"}}; raises if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    compiler = None
+    procs = {}
+    info = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            info[name] = {"seconds": 0.0, "log": "", "cached": True}
+            continue
+        compiler = compiler or nvcc()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [compiler, *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        info[name] = {"seconds": time.perf_counter() - t0, "log": log,
+                      "cached": False}
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return info
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if missing."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        _LIBS[name] = lib
+    return lib

@@ -1,0 +1,131 @@
+"""Match-graph construction (port of eacham_tpu/sfm/matches.py).
+
+The whole graph is three dense tables (pair index, forward map, inverse
+map) built from the batched matcher's output, with every edge verified by
+an essential-matrix RANSAC batched over pairs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from eacham_tpu_torch.features.matching import match_all_pairs
+from eacham_tpu_torch.geometry.camera import pixel_to_normalized
+from eacham_tpu_torch.geometry.epipolar import estimate_essential
+
+
+def all_pairs_index(n_frames: int) -> np.ndarray:
+    """Host-side [P, 2] (i, j) enumeration, i < j."""
+    ii, jj = np.triu_indices(n_frames, k=1)
+    return np.stack([ii, jj], -1).astype(np.int32)
+
+
+def invert_matches(match_ij: torch.Tensor, valid_ij: torch.Tensor):
+    """Invert kp_i -> kp_j maps into kp_j -> kp_i maps by scatter.
+
+    match_ij [P, K] int32, valid_ij [P, K] bool -> (match_ji [P, K] int32,
+    valid_ji [P, K] bool). Valid matches are mutual, hence injective; the
+    invalid ones all land in a dump column that is cut off.
+    """
+    P, K = match_ij.shape
+    tgt = torch.where(valid_ij, match_ij.long(), K)
+    src = torch.arange(K, dtype=torch.int32, device=match_ij.device).expand(P, K)
+    inv = torch.full((P, K + 1), -1, dtype=torch.int32, device=match_ij.device)
+    inv = inv.scatter(1, tgt, src)[:, :-1]
+    return inv, inv >= 0
+
+
+def verify_matches_epipolar(
+    keypoints: torch.Tensor,   # [N, K, 2] pixels
+    pair_idx: torch.Tensor,    # [P, 2]
+    match_ij: torch.Tensor,    # [P, K]
+    valid_ij: torch.Tensor,    # [P, K]
+    intr: torch.Tensor,        # [4]
+    generator: torch.Generator | None = None,
+    px_threshold: float = 4.0,
+    n_hyp: int = 64,
+    chunk: int = 1024,
+    sample_idx: torch.Tensor | None = None,   # [P, n_hyp, 8]
+):
+    """Geometric verification of every match edge: per-pair essential-matrix
+    MSAC keeps only epipolar-consistent matches. ``chunk`` pairs are
+    verified in one batched pass.
+
+    Returns the filtered ``valid_ij``.
+    """
+    P = match_ij.shape[0]
+    f_mean = 0.5 * (intr[0] + intr[1])
+    thr = torch.full_like(f_mean, px_threshold) / f_mean
+    pi = pair_idx.long()
+    out = []
+    for s in range(0, P, chunk):
+        p = pi[s:s + chunk]
+        v = valid_ij[s:s + chunk]
+        uv1 = keypoints[p[:, 0]]
+        uv2 = torch.gather(keypoints[p[:, 1]], 1,
+                           match_ij[s:s + chunk].long()[..., None].expand(-1, -1, 2))
+        xy1 = pixel_to_normalized(uv1, intr)
+        xy2 = pixel_to_normalized(uv2, intr)
+        res = estimate_essential(
+            xy1, xy2, v, thr, n_hyp=n_hyp, generator=generator,
+            sample_idx=None if sample_idx is None else sample_idx[s:s + chunk])
+        out.append(v & res.inliers)
+    if not out:
+        return valid_ij
+    return torch.cat(out)
+
+
+def _post_verify_gate(pair_ok, valid_ij, min_matches):
+    """Min-survivor gate after epipolar verification."""
+    pair_ok = pair_ok & (valid_ij.sum(-1) > min_matches)
+    return pair_ok, valid_ij & pair_ok[:, None]
+
+
+def bucket_pairs(pair_idx: np.ndarray) -> np.ndarray:
+    """Pad the pair axis on the host with (0, 0) dummy rows up to a
+    multiple of 64 (up to 1024 pairs) or 512 (beyond); the dummies are
+    gated out by ``i < j`` in the matcher."""
+    pair_idx = np.asarray(pair_idx)
+    P0 = pair_idx.shape[0]
+    step = 64 if P0 <= 1024 else 512
+    pad = (-P0) % step
+    if pad:
+        pair_idx = np.concatenate(
+            [pair_idx, np.zeros((pad, 2), pair_idx.dtype)], axis=0)
+    return pair_idx
+
+
+def build_match_tables(
+    desc: torch.Tensor,        # [N, K, D] L2-normalized descriptors
+    kp_mask: torch.Tensor,     # [N, K]
+    ratio: float = 0.8,
+    min_matches: int = 30,
+    chunk: int = 16,
+    verify: tuple | None = None,   # (keypoints, intr, generator, px_thr, n_hyp)
+    verify_sample_idx: torch.Tensor | None = None,
+):
+    """Exhaustive matching + epipolar verification + inverse tables.
+
+    ``chunk`` bounds the plain matcher's memory on the CPU (the kernel
+    takes every pair in one launch).
+
+    Returns ``(pair_idx [P, 2] int32, pair_ok, match_ij, valid_ij,
+    match_ji, valid_ji)`` on the descriptors' device — P includes the
+    bucket padding.
+    """
+    pair_idx = torch.as_tensor(bucket_pairs(all_pairs_index(desc.shape[0])),
+                               device=desc.device)
+    match_ij, valid_ij, pair_ok = match_all_pairs(
+        desc, kp_mask, pair_idx, ratio=ratio, min_matches=min_matches,
+        chunk=chunk)
+    if verify is not None:
+        kps, intr, generator, px_thr, n_hyp = verify
+        valid_ij = verify_matches_epipolar(
+            kps, pair_idx, match_ij, valid_ij, intr, generator,
+            px_threshold=px_thr, n_hyp=n_hyp, sample_idx=verify_sample_idx)
+        pair_ok, valid_ij = _post_verify_gate(pair_ok, valid_ij, min_matches)
+    else:
+        valid_ij = valid_ij & pair_ok[:, None]
+    match_ji, valid_ji = invert_matches(match_ij, valid_ij)
+    return pair_idx, pair_ok, match_ij, valid_ij, match_ji, valid_ji

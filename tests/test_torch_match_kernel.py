@@ -1,0 +1,170 @@
+"""The port's batched fused matcher (eacham_tpu_torch.ops.match_kernel)
+against the JAX package's Pallas kernel run in interpret mode, on the CPU.
+
+On the CPU the port runs the kernel's plain PyTorch version; the CUDA
+kernel itself is compared with that plain version by the test marked
+``cuda``, which runs only where a card is present. The JAX package is
+imported inside the test that uses it, so that the ``cuda`` test also runs
+on a machine without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_match_kernel.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from eacham_tpu_torch.features.matching import match_all_pairs
+from eacham_tpu_torch.ops import match_kernel as mk
+
+torch.set_num_threads(2)
+
+
+def _fixture(rng, N=7, K=96, D=256):
+    """Correlated neighbours so real matches exist (tests/test_ops.py)."""
+    desc = rng.normal(size=(N, K, D)).astype(np.float32)
+    for i in range(1, N):
+        desc[i, : K // 2] = (desc[i - 1, : K // 2]
+                             + 0.02 * rng.normal(size=(K // 2, D)).astype(np.float32))
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    mask = rng.random((N, K)) > 0.1
+    pairs = np.array([(i, j) for i in range(N) for j in range(i + 1, N)], np.int32)
+    return desc, mask, pairs
+
+
+@pytest.mark.parametrize("K", [96, 200])
+def test_plain_matches_pallas_interpret(rng, K):
+    """Decision agreement > 0.995 and equal match_j wherever both sides
+    call a match valid (K=200 pads to two 128-row tiles, so the column
+    merge across tiles is exercised)."""
+    import jax.numpy as jnp
+    from eacham_tpu.ops.match_kernel import match_pairs_fused as jax_match_pairs_fused
+
+    desc, mask, pairs = _fixture(rng, K=K)
+    mj_ref, mv_ref = jax_match_pairs_fused(jnp.asarray(desc), jnp.asarray(mask),
+                                           jnp.asarray(pairs), interpret=True)
+    mj, mv = mk.match_pairs_fused(torch.as_tensor(desc), torch.as_tensor(mask),
+                                  torch.as_tensor(pairs))
+    vr, vt = np.asarray(mv_ref), mv.numpy()
+    assert mj.shape == (len(pairs), K) and mj.dtype == torch.int32
+    assert (vr == vt).mean() > 0.995
+    both = vr & vt
+    np.testing.assert_array_equal(np.asarray(mj_ref)[both], mj.numpy()[both])
+    assert both.sum() > 100
+
+
+def _representable(seed, N=6, K=300, D=256):
+    """Descriptors with entries in {-1, 0, 1} / 16: exact in bf16, and every
+    product sum is exact in fp32 whatever its order, so the quantized
+    similarities (and their many exact ties) are the same on every path."""
+    r = np.random.default_rng(seed)
+    desc = (r.integers(-1, 2, size=(N, K, D)) / 16.0).astype(np.float32)
+    mask = r.random((N, K)) > 0.2
+    pairs = np.array([(i, j) for i in range(N) for j in range(i + 1, N)]
+                     + [(0, 0)] * 3, np.int32)
+    return desc, mask, pairs
+
+
+def test_plain_equals_pallas_interpret_on_exact_inputs():
+    """With exact arithmetic on both sides the decisions, and match_j
+    everywhere, are equal: the packing and tie rules agree bit for bit
+    (K=300 pads to three 128-row tiles)."""
+    import jax.numpy as jnp
+    from eacham_tpu.ops.match_kernel import match_pairs_fused as jax_match_pairs_fused
+
+    desc, mask, pairs = _representable(1)
+    mj_ref, mv_ref = jax_match_pairs_fused(jnp.asarray(desc), jnp.asarray(mask),
+                                           jnp.asarray(pairs), ratio=0.95, interpret=True)
+    mj, mv = mk.match_pairs_fused(torch.as_tensor(desc), torch.as_tensor(mask),
+                                  torch.as_tensor(pairs), ratio=0.95)
+    np.testing.assert_array_equal(mv.numpy(), np.asarray(mv_ref))
+    np.testing.assert_array_equal(mj.numpy(), np.asarray(mj_ref))
+    assert mv.any()
+
+
+def test_plain_all_masked(rng):
+    """All-False keypoint masks yield zero matches, not a crash."""
+    N, K, D = 3, 64, 256
+    desc = rng.normal(size=(N, K, D)).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    mj, mv = mk.match_pairs_fused(torch.as_tensor(desc), torch.zeros(N, K, dtype=torch.bool),
+                                  torch.tensor([[0, 1], [1, 2]], dtype=torch.int32))
+    assert not mv.any()
+    assert mj.shape == (2, K)
+
+
+def test_plain_raw_outputs_follow_packing_rule():
+    """Exact quantized ties go to the highest column (row pass) and, within
+    a 128-row tile, to the highest row; across tiles the earlier tile keeps
+    the column (``take_new = ctop > prev``). Dead entries unpack to NEG."""
+    N, Kp, D = 2, 256, 256
+    desc = torch.zeros(N, Kp, D)
+    desc[:, :, 0] = 1.0
+    mask = torch.ones(N, Kp, dtype=torch.uint8)
+    mask[1, 5] = 0
+    desc_bf, m = mk.prepare(desc, mask.bool())
+    b1, a1, s1, b2, a2, s2 = mk.match_pairs_plain(desc_bf, m, torch.tensor([[0, 1]]))
+    assert torch.all(b1 == 1.0) and torch.all(s1 == 1.0)
+    assert torch.all(a1 == Kp - 1)
+    assert a2[0, 0] == 127 and b2[0, 5] == mk.NEG and s2[0, 5] == mk.NEG
+    live = torch.arange(Kp) != 5
+    assert torch.all(a2[0, live] == 127)
+
+
+def test_match_all_pairs_gate_and_padding_rows(rng):
+    """The pair gate counts survivors and rejects (0, 0) bucket rows."""
+    desc, mask, pairs = _fixture(rng)
+    pairs = np.concatenate([pairs, np.zeros((3, 2), np.int32)])
+    mj, mv, ok = match_all_pairs(torch.as_tensor(desc), torch.as_tensor(mask),
+                                 torch.as_tensor(pairs), min_matches=10)
+    counts = mv.sum(-1)
+    np.testing.assert_array_equal(ok.numpy(), ((counts > 10)
+                                               & torch.as_tensor(pairs[:, 0] < pairs[:, 1])).numpy())
+    assert not ok[-3:].any() and ok[:6].all()
+
+
+def test_wrapper_refuses_non_cuda_tensors(rng):
+    """The kernel wrapper never runs the plain version on its own."""
+    desc, mask, pairs = _fixture(rng, N=2, K=128)
+    desc_bf, m = mk.prepare(torch.as_tensor(desc), torch.as_tensor(mask))
+    with pytest.raises(ValueError):
+        mk.match_pairs_kernel(desc_bf, m, torch.tensor([[0, 1]], dtype=torch.int32))
+    assert mk.match_pairs_kernel.launches == 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    desc, mask, pairs = _fixture(np.random.default_rng(0), N=9, K=200)
+    pairs = np.concatenate([pairs, np.zeros((4, 2), np.int32)])
+    dev = torch.device("cuda")
+    desc_bf, m = mk.prepare(torch.as_tensor(desc, device=dev), torch.as_tensor(mask, device=dev))
+    pi = torch.as_tensor(pairs, device=dev)
+    before = mk.match_pairs_kernel.launches
+    raw_k = mk.match_pairs_kernel(desc_bf, m, pi)
+    torch.cuda.synchronize()
+    assert mk.match_pairs_kernel.launches == before + 1
+    raw_p = mk.match_pairs_plain(desc_bf, m, pi)
+    vk = mk.decide(raw_k, m, pi, 0.8)[1]
+    vp = mk.decide(raw_p, m, pi, 0.8)[1]
+    assert (vk == vp).float().mean().item() > 0.999
+    both = vk & vp
+    assert torch.equal(raw_k[1][both], raw_p[1][both])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_bit_exact_on_exact_inputs():
+    """Where every product sum is exact, all six raw outputs of the kernel
+    equal the plain version's bit for bit, ties and padding rows included."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    desc, mask, pairs = _representable(2)
+    dev = torch.device("cuda")
+    desc_bf, m = mk.prepare(torch.as_tensor(desc, device=dev), torch.as_tensor(mask, device=dev))
+    pi = torch.as_tensor(pairs, device=dev)
+    raw_k = mk.match_pairs_kernel(desc_bf, m, pi)
+    torch.cuda.synchronize()
+    raw_p = mk.match_pairs_plain(desc_bf, m, pi)
+    for a, b in zip(raw_k, raw_p):
+        assert torch.equal(a, b)
