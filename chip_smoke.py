@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (eacham_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py [--dump tables.npz]
+    python3 chip_smoke.py [--dump tables.npz] [--dump-deep tables_deep.npz]
 
 1. prints the card's name and power limit;
-2. builds every CUDA kernel of the port from ``eacham_tpu_torch/csrc``;
+2. builds every CUDA kernel of the port from ``eacham_tpu_torch/csrc``
+   (one nvcc per source, all started together);
 3. renders the 100-frame bench workload (512x384, seed 0) with the port's
-   own ``utils/synthetic.py`` and drives the slice's main path at full
-   size: ``extract_features(K=512)`` -> ``initialize_sfm`` with the bench's
-   options. Kernel launch counts are set to 0 just before and read just
-   after;
-4. holds each kernel against its plain PyTorch version on the inputs the
-   main path gave it (N=100, K=512, P=5120 with bucket padding), plus the
-   all-masked case, and times kernel, plain version and bound;
-5. checks the slice: every kernel launched, edges survive, and the init
-   pair's relative pose is within 1 deg rotation and 5 deg translation
-   direction of ground truth (20 deg where the homography path was taken,
-   see MAX_TRANS_DEG_H).
+   own ``utils/synthetic.py`` and drives three paths through the port's
+   entry points, each with the kernel launch counts set to 0 just before
+   and read just after:
+   - the classical path at full size: ``extract_features(K=512)`` ->
+     ``initialize_sfm`` with the bench's options (``match_pairs`` kernel);
+   - the deep path at full size (scripts/bench_deep.py's workload): the
+     shipped weights, ``extract_deep_batch(K=1024)`` ->
+     ``build_match_tables_deep(pair_window=10, retrieval_k=3, threshold
+     0.15, epipolar verification)`` -> ``initialize_sfm(match_tables=...)``
+     (``masked_attention`` kernel, 12 launches per chunk of pairs);
+   - the single-pair entry point ``ops.match_pair_fused`` on frames 0 and 1
+     of the deep features (``match_pair`` kernel; nothing in the pipeline
+     calls it, in the reference either);
+4. holds each kernel against its plain PyTorch version on the inputs its
+   path gave it, plus the ragged and fully masked cases, and times kernel,
+   plain version, bound and, where one PyTorch call computes the same
+   function, that call;
+5. checks each path: every kernel of the path launched, edges survive, and
+   the init pair's relative pose against ground truth: within 1 deg
+   rotation and 5 deg translation direction on the classical path (20 deg
+   where the homography path was taken, see MAX_TRANS_DEG_H), 2 and 30 deg
+   on the deep path (see DEEP_MAX_ROT_DEG).
 
-``--dump`` also saves the slice's match tables and ground-truth poses, the
-input of ``scripts/init_pair_spread_{jax,torch}.py``.
+``--dump`` / ``--dump-deep`` also save a path's match tables and
+ground-truth poses, the input of ``scripts/init_pair_spread_{jax,torch}.py``.
 
 Prints one JSON line of per-kernel numbers, then the contract line
 ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero; without
@@ -56,8 +68,28 @@ MAX_ROT_DEG, MAX_TRANS_DEG = 1.0, 5.0
 # deg; its rotation, and the E path, keep the limits above.
 MAX_TRANS_DEG_H = 20.0
 
+# the deep path's workload and options (scripts/bench_deep.py)
+DEEP_KPS, DEEP_WINDOW, DEEP_RETRIEVAL, DEEP_THRESHOLD = 1024, 10, 3, 0.15
+DEEP_OPTIONS = dict(
+    min_initial_inliers=60, min_matches=20, match_ratio=0.85,
+    init_min_tri_angle_deg=1.0, min_tri_angle_deg=1.0,
+    ransac_hyps_e=256, ransac_hyps_h=128, ransac_hyps_pnp=256,
+    lm_capacity=16384, refine_max_iters=30, global_max_iters=50,
+    local_ba_every=3)
+DEEP_VERIFY_SEED = 7
+# The deep path's best-ranked pair (4, 12) has several two-view solutions of
+# nearly equal support, and which one wins depends on the RANSAC draws: on
+# the same match tables (--dump-deep), 16 seeds each on the CPU, the JAX
+# package lands 0.21-0.64 deg / 1.5-7.0 deg off (rotation / translation
+# direction) on 15 seeds and 1.87 / 29.75 deg on one; the port 0.26-1.56 deg
+# / 1.5-18.6 deg (scripts/init_pair_spread_{jax,torch}.py
+# --min-initial-inliers 60). Neither keeps every seed within the classical
+# limits above, so the deep path is held to the reference's spread.
+DEEP_MAX_ROT_DEG, DEEP_MAX_TRANS_DEG = 2.0, 30.0
+
 # H100 SXM dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 
@@ -129,31 +161,33 @@ def run_slice(images, intr, dev, card):
     return xy, desc, mask, scene, stats, launches
 
 
-def check_slice(xy, desc, mask, scene, stats, launches, poses):
-    from eacham_tpu_torch.utils.evaluate import relative_pose_error_deg
-
-    require(xy.shape == (N_FRAMES, MAX_KPS, 2) and desc.shape == (N_FRAMES, MAX_KPS, 256),
+def check_features(xy, desc, mask, n_kps):
+    """Shapes, finite values, keypoints in every frame; returns the count
+    of keypoints per frame."""
+    require(xy.shape == (N_FRAMES, n_kps, 2) and desc.shape == (N_FRAMES, n_kps, 256),
             (xy.shape, desc.shape))
     require(bool(xy.isfinite().all()) and bool(desc.isfinite().all()), "non-finite features")
-    n_kps = mask.sum(1)
-    require(int(n_kps.min()) > 0, "a frame has no keypoints")
-    require(all(n >= 1 for n in launches.values()), f"a kernel never launched: {launches}")
-    require(stats["pairs"] == 5120 and stats["edges"] > 0, stats)
-    require(stats["initialized"] and stats["n_good"] > 100, stats)
-    i0, j0 = stats["init_pair"]
-    T = stats["T_init"].cpu().numpy()
-    require(np.isfinite(T).all(), "non-finite init pose")
-    rot, trans = relative_pose_error_deg(T, poses[i0], poses[j0])
-    max_trans = MAX_TRANS_DEG_H if stats["used_homography"] else MAX_TRANS_DEG
-    print(f"slice: keypoints/frame {int(n_kps.min())}-{int(n_kps.max())}, "
-          f"edges {stats['edges']}/{stats['pairs']}, init pair ({i0}, {j0}), "
-          f"n_good {stats['n_good']}, homography {stats['used_homography']}, "
-          f"pose error rot {rot:.4f} deg (limit {MAX_ROT_DEG}), "
-          f"t-dir {trans:.4f} deg (limit {max_trans})", flush=True)
-    require(rot < MAX_ROT_DEG and trans < max_trans, f"init pose error {rot}, {trans} deg")
+    per_frame = mask.sum(1)
+    require(int(per_frame.min()) > 0, "a frame has no keypoints")
+    return per_frame
+
+
+def check_seeded_map(tag, scene, stats, poses, max_rot=MAX_ROT_DEG, max_trans=None):
+    """The init pair's pose against ground truth and the seeded landmarks."""
+    rot, trans, max_rot, max_trans = init_pose_line(tag, stats, poses, max_rot, max_trans)
+    require(rot < max_rot and trans < max_trans, f"init pose error {rot}, {trans} deg")
     pts = scene.points[scene.lm_valid]
     require(pts.shape[0] == stats["n_good"] and bool(pts.isfinite().all()),
             "seeded landmarks do not match n_good or are not finite")
+
+
+def check_slice(xy, desc, mask, scene, stats, launches, poses):
+    n_kps = check_features(xy, desc, mask, MAX_KPS)
+    require(launches["match_pairs"] >= 1, f"the matcher never launched: {launches}")
+    require(stats["pairs"] == 5120 and stats["edges"] > 0, stats)
+    require(stats["initialized"] and stats["n_good"] > 100, stats)
+    print(f"slice: keypoints/frame {int(n_kps.min())}-{int(n_kps.max())}", flush=True)
+    check_seeded_map("slice", scene, stats, poses)
 
 
 def check_match_kernel(desc, mask, launches, card):
@@ -217,6 +251,258 @@ def check_match_kernel(desc, mask, launches, card):
             "library_ms": None}
 
 
+def deep_stages(models, imgs, intr, dev):
+    """The deep path once, through the port's entry points, timed per
+    stage: images -> SuperPoint features -> LightGlue match tables over
+    windowed candidate pairs, epipolar-verified -> seeded two-view map.
+    Returns (xy, desc, mask, tables, scene, stats, seconds)."""
+    import torch
+    from eacham_tpu_torch.features.deep.frontend import (
+        build_match_tables_deep, extract_deep_batch)
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions, initialize_sfm
+
+    superpoint, matcher = models
+    opt = SfmOptions(**DEEP_OPTIONS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xy, desc, _, mask = extract_deep_batch(superpoint, imgs, max_keypoints=DEEP_KPS, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tables = build_match_tables_deep(
+        matcher, xy, desc, mask, (WIDTH, HEIGHT), min_matches=opt.min_matches,
+        pair_window=DEEP_WINDOW, retrieval_k=DEEP_RETRIEVAL, threshold=DEEP_THRESHOLD,
+        verify=(intr, torch.Generator(device=dev).manual_seed(DEEP_VERIFY_SEED),
+                opt.max_repr_error, opt.verify_hyps), device=dev)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    scene, stats = initialize_sfm(xy, desc, mask, image_size=(WIDTH, HEIGHT), intr=intr,
+                                  options=opt, device=dev, match_tables=tables)
+    torch.cuda.synchronize()
+    secs = dict(extract_deep=t1 - t0, match_deep=t2 - t1,
+                init_pair=stats["seconds"]["init_pair"],
+                seed=stats["seconds"].get("seed", 0.0), total=time.perf_counter() - t0)
+    return xy, desc, mask, tables, scene, stats, secs
+
+
+def run_deep(images, intr, dev, card):
+    """The deep path at full size with the shipped weights; launch counts
+    set to 0 just before and read just after."""
+    import torch
+    from eacham_tpu_torch.features.deep.frontend import load_frontend_params
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    superpoint, matcher, n_layers = load_frontend_params(device=dev)
+    for model, fname, name, key in (
+            (superpoint, "superpoint.npz", "det2.bias", "['params']/['det2']/['bias']"),
+            (matcher, "lightglue.npz", "final1.bias", "['params']/['final1']/['bias']")):
+        shipped = ROOT / "weights" / fname
+        require(model.weights_path == str(shipped), f"{fname}: loaded from {model.weights_path}")
+        with np.load(shipped) as data:
+            want = torch.as_tensor(np.array(data[key], dtype=np.float32), device=dev)
+        require(torch.equal(model.get_parameter(name), want), f"{fname}: {name} differs")
+    print(f"deep frontend: shipped weights loaded from {ROOT.name}/weights "
+          f"(SuperPoint 256-d, LightGlue {n_layers} layers x 4 attention blocks)", flush=True)
+
+    imgs = torch.as_tensor(images, device=dev)
+    reset_launch_counts()
+    out = deep_stages((superpoint, matcher), imgs, intr, dev)
+    launches = launch_counts()
+    print(f"deep path stages (s) on {card}: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out[-1].items()), flush=True)
+    return (superpoint, matcher), out, launches
+
+
+def init_pose_line(tag, stats, poses, max_rot=MAX_ROT_DEG, max_trans=None):
+    """Print the init pair's pose error against its limits (by default the
+    classical slice's); returns (rot, trans, max_rot, max_trans)."""
+    from eacham_tpu_torch.utils.evaluate import relative_pose_error_deg
+
+    i0, j0 = stats["init_pair"]
+    T = stats["T_init"].cpu().numpy()
+    require(np.isfinite(T).all(), "non-finite init pose")
+    rot, trans = relative_pose_error_deg(T, poses[i0], poses[j0])
+    if max_trans is None:
+        max_trans = MAX_TRANS_DEG_H if stats["used_homography"] else MAX_TRANS_DEG
+    print(f"{tag}: edges {stats['edges']}/{stats['pairs']}, init pair ({i0}, {j0}), "
+          f"n_good {stats['n_good']}, homography {stats['used_homography']}, "
+          f"pose error rot {rot:.4f} deg (limit {max_rot}), "
+          f"t-dir {trans:.4f} deg (limit {max_trans})", flush=True)
+    return rot, trans, max_rot, max_trans
+
+
+def check_deep(models, out, launches, poses):
+    from eacham_tpu_torch.features.deep.frontend import PAIR_CHUNK
+    from eacham_tpu_torch.sfm.matches import bucket_pairs, candidate_pairs
+
+    xy, desc, mask, tables, scene, stats, secs = out
+    n_kps = check_features(xy, desc, mask, DEEP_KPS)
+    cand = candidate_pairs(desc, mask, window=DEEP_WINDOW, retrieval_k=DEEP_RETRIEVAL)
+    P = bucket_pairs(cand).shape[0]
+    require(tables[0].shape[0] == P and stats["pairs"] == P, (tables[0].shape, stats["pairs"], P))
+    want = -(-P // PAIR_CHUNK) * 4 * models[1].n_layers
+    print(f"deep path: keypoints/frame {int(n_kps.min())}-{int(n_kps.max())}, candidate pairs "
+          f"{len(cand)} bucketed to {P}, chunk {PAIR_CHUNK}, kernel launches {launches} "
+          f"(attention expected {want})", flush=True)
+    require(launches["masked_attention"] == want, f"attention launches {launches}, want {want}")
+    require(stats["edges"] > 0, stats)
+    require(stats["initialized"] and stats["n_good"] >= DEEP_OPTIONS["min_initial_inliers"], stats)
+    check_seeded_map("deep path", scene, stats, poses, DEEP_MAX_ROT_DEG, DEEP_MAX_TRANS_DEG)
+    require(secs["total"] < 120.0, f"the deep path took {secs['total']:.1f} s")
+
+
+def check_attention_kernel(models, out, launches, card):
+    """Kernel vs plain version on one chunk's q, k, v and mask as the main
+    path makes them (first self and first cross block), plus the ragged
+    and the fully masked cases; returns the kernel's JSON record."""
+    import torch
+    import torch.nn.functional as F
+    from eacham_tpu_torch.features.deep import lightglue as lg
+    from eacham_tpu_torch.features.deep.frontend import PAIR_CHUNK
+    from eacham_tpu_torch.ops import attention as at
+
+    xy, desc, mask, tables = out[:4]
+    dev = desc.device
+    # replay the first chunk of pairs with the matcher's attention call recorded
+    seen = []
+    inner = lg.attention
+
+    def record(q, k, v, m):
+        seen.append((q, k, v, m))
+        return inner(q, k, v, m)
+
+    pi = tables[0][:PAIR_CHUNK].long()
+    kps = lg.normalize_keypoints(xy, float(WIDTH), float(HEIGHT))
+    lg.attention = record
+    try:
+        lg.match_deep(models[1], kps[pi[:, 0]], desc[pi[:, 0]], mask[pi[:, 0]],
+                      kps[pi[:, 1]], desc[pi[:, 1]], mask[pi[:, 1]], threshold=DEEP_THRESHOLD)
+    finally:
+        lg.attention = inner
+    require(len(seen) == 4 * models[1].n_layers, f"{len(seen)} attention calls in one chunk")
+    cases = {"self": seen[0], "cross": seen[2]}
+    errs = {}
+    for name, (q, k, v, m) in cases.items():
+        require(tuple(q.shape) == (PAIR_CHUNK, 4, DEEP_KPS, 64), q.shape)
+        o = at.masked_attention_kernel(q, k, v, m)
+        torch.cuda.synchronize()
+        ref = at.masked_attention_plain(q, k, v, m)
+        scale = max(1.0, float(v.abs().max()))
+        errs[name] = float((o - ref).abs().max())
+        print(f"attention kernel vs plain, main-path {name} block {tuple(q.shape)}: "
+              f"max abs err {errs[name]:.3g} (limit 1e-5 x max(1, |v|max = {scale:.3g})), "
+              f"live keys {int(m.sum())}/{m.numel()}", flush=True)
+        require(errs[name] < 1e-5 * scale, f"attention kernel off by {errs[name]} ({name})")
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((2, 4, 130, 64), generator=g, device=dev)
+    k = torch.randn((2, 4, 70, 64), generator=g, device=dev)
+    v = torch.randn((2, 4, 70, 64), generator=g, device=dev)
+    m = torch.rand((2, 70), generator=g, device=dev) > 0.5
+    m[0] = False                                   # batch entry 0: no live key
+    o = at.masked_attention_kernel(q, k, v, m)
+    torch.cuda.synchronize()
+    err_small = float((o - at.masked_attention_plain(q, k, v, m)).abs().max())
+    print(f"attention kernel vs plain, Nq 130 / Nk 70 with a fully masked batch entry: "
+          f"max abs err {err_small:.3g} (limit 1e-5), fully masked rows max "
+          f"{float(o[0].abs().max()):.3g} (exact zeros required)", flush=True)
+    require(err_small < 1e-5 and float(o[0].abs().max()) == 0.0 and bool(o.isfinite().all()),
+            "attention kernel fails the ragged / fully masked case")
+
+    q, k, v, m = cases["self"]
+    B, H, Nq, D = q.shape
+    Nk = k.shape[2]
+    ms = cuda_ms(lambda: at.masked_attention_kernel(q, k, v, m), reps=10)
+    plain_ms = cuda_ms(lambda: at.masked_attention_plain(q, k, v, m), reps=3)
+    # yardstick only, never called by the port
+    bias = m[:, None, None, :]
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bias), reps=10)
+    # masked keys need no work: count the live ones (all keys when none is masked)
+    flops = 4.0 * H * Nq * D * float(m.sum())
+    nbytes = 4.0 * (q.numel() + k.numel() + v.numel() + q.numel()) + m.numel()
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"attention kernel on {card}, [B={B}, H={H}, Nq={Nq}, Nk={Nk}, D={D}]: {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP over the fp32 peak "
+          f"{PEAK_FP32_FLOPS:.3g}/s, {nbytes:.4g} B over {PEAK_BYTES:.3g} B/s)", flush=True)
+    return {"name": "masked_attention", "route": "cuda",
+            "source": "eacham_tpu_torch/csrc/masked_attention.cu",
+            "replaces": "eacham_tpu/ops/attention.py:32",
+            "launches": launches["masked_attention"], "max_abs_err": max(errs.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def run_pair_path(desc, mask):
+    """The single-pair entry point on frames 0 and 1 of the deep features;
+    launch counts set to 0 just before and read just after."""
+    import torch
+    from eacham_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    match_j, valid = ops.match_pair_fused(desc[0], desc[1], mask[0], mask[1],
+                                          ratio=DEEP_OPTIONS["match_ratio"])
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    require(match_j.shape == (DEEP_KPS,) and valid.shape == (DEEP_KPS,), match_j.shape)
+    require(int(valid.sum()) > 0, "match_pair_fused found no match between frames 0 and 1")
+    print(f"single-pair path: match_pair_fused(frame 0, frame 1) -> {int(valid.sum())} matches "
+          f"of {int(mask[0].sum())} keypoints, kernel launches {launches}", flush=True)
+    return launches
+
+
+def check_match_pair_kernel(desc, mask, launches, card):
+    """Single-pair kernel vs plain version on the deep features of frames 0
+    and 1 (K1 = K2 = 1024) and on a ragged K1 200 / K2 170 cut of them;
+    returns the kernel's JSON record."""
+    import torch
+    from eacham_tpu_torch.ops import match_kernel as mk
+
+    ratio = DEEP_OPTIONS["match_ratio"]
+    max_err = 0.0
+    for K1, K2 in ((DEEP_KPS, DEEP_KPS), (200, 170)):
+        d1, d2 = desc[0, :K1].contiguous(), desc[1, :K2].contiguous()
+        m1, m2 = mask[0, :K1].contiguous(), mask[1, :K2].contiguous()
+        raw_k = mk.match_pair_kernel(d1, d2, m1, m2)
+        torch.cuda.synchronize()
+        raw_p = mk.match_pair_plain(d1, d2, m1, m2)
+        equal = [bool(torch.equal(a, b)) for a, b in zip(raw_k, raw_p)]
+        err = max(float((raw_k[i] - raw_p[i]).abs().max()) for i in (0, 2, 3, 5))
+        max_err = max(max_err, err)
+        ak, vk = mk.match_pair_fused(d1, d2, m1, m2, ratio)
+        ap, vp = mk.match_pair_fused(d1.cpu(), d2.cpu(), m1.cpu(), m2.cpu(), ratio)
+        vk, ak = vk.cpu(), ak.cpu()
+        agree = float((vk == vp).float().mean())
+        same_j = bool(torch.equal(ak[vk & vp], ap[vk & vp]))
+        print(f"match_pair kernel vs plain (K1={K1}, K2={K2}): raw outputs equal {equal}, "
+              f"max |best/second diff| {err:.3g} (one quantization step is 6.1e-5: fp32 "
+              f"summation order may flip a step), decisions agree {agree:.6f}, "
+              f"valid {int(vk.sum())} kernel / {int(vp.sum())} plain", flush=True)
+        require(all(equal) or (agree >= 0.999 and same_j and err <= 2.0 / 16384),
+                f"match_pair kernel disagrees with its plain version: {equal}, {agree}")
+
+    d1, d2 = desc[0].contiguous(), desc[1].contiguous()
+    m1, m2 = mask[0].contiguous(), mask[1].contiguous()
+    ms = cuda_ms(lambda: mk.match_pair_kernel(d1, d2, m1, m2), reps=20)
+    plain_ms = cuda_ms(lambda: mk.match_pair_plain(d1, d2, m1, m2), reps=5)
+    K1, K2 = d1.shape[0], d2.shape[0]
+    flops = 2.0 * K1 * K2 * d1.shape[1]
+    nbytes = 4.0 * (d1.numel() + d2.numel()) + K1 + K2 + 12.0 * (K1 + K2)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"match_pair kernel on {card}, K1=K2={K1}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP over the fp32 peak "
+          f"{PEAK_FP32_FLOPS:.3g}/s, {nbytes:.4g} B over {PEAK_BYTES:.3g} B/s)", flush=True)
+    return {"name": "match_pair", "route": "cuda",
+            "source": "eacham_tpu_torch/csrc/match_pair.cu",
+            "replaces": "eacham_tpu/ops/match_kernel.py:31",
+            "launches": launches["match_pair"], "max_abs_err": max_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
 def dump_scene(path, scene, poses, intr):
     """Save the seeded scene's match tables for scripts/init_pair_spread_*.py."""
     t = {k: getattr(scene, k).cpu().numpy() for k in (
@@ -232,7 +518,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dump", metavar="NPZ",
-                    help="also save the slice's match tables and ground truth here")
+                    help="also save the classical slice's match tables and ground truth here")
+    ap.add_argument("--dump-deep", metavar="NPZ",
+                    help="also save the deep path's match tables and ground truth here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -269,10 +557,19 @@ def main() -> int:
         dump_scene(args.dump, scene, poses, intr)
     # the kernel phase runs before the slice's checks, so that its numbers
     # are printed whatever those checks find
-    record = check_match_kernel(desc, mask, launches, card)
+    records = [check_match_kernel(desc, mask, launches, card)]
     check_slice(xy, desc, mask, scene, stats, launches, poses)
+    del xy, desc, mask, scene
 
-    print(json.dumps({"kernels": [record]}), flush=True)
+    models, deep, deep_launches = run_deep(images, intr, dev, card)
+    if args.dump_deep:
+        dump_scene(args.dump_deep, deep[4], poses, intr)
+    records.append(check_attention_kernel(models, deep, deep_launches, card))
+    pair_launches = run_pair_path(deep[1], deep[2])
+    records.append(check_match_pair_kernel(deep[1], deep[2], pair_launches, card))
+    check_deep(models, deep, deep_launches, poses)
+
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

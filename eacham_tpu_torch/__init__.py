@@ -7,8 +7,10 @@ CUDA kernels under ``csrc/`` (built with nvcc at first use), each with a
 plain PyTorch version beside it.
 
 Entry points (``features.frontend.extract_features``,
-``sfm.pipeline.initialize_sfm``) run on the card by default and raise when
-there is none; pass ``device="cpu"`` to run the plain versions on the CPU.
+``features.deep.frontend.load_frontend_params`` / ``extract_deep_batch`` /
+``build_match_tables_deep``, ``sfm.pipeline.initialize_sfm``) run on the
+card by default and raise when there is none; pass ``device="cpu"`` to run
+the plain versions on the CPU.
 """
 
 import eacham_tpu_torch.fp  # noqa: F401  (fp32 matmul/conv policy)

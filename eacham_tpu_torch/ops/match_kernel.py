@@ -1,12 +1,14 @@
-"""Batched fused descriptor matcher: the CUDA kernel, its wrapper, and its
-plain PyTorch version (port of ``match_pairs_fused``,
-eacham_tpu/ops/match_kernel.py).
+"""Fused descriptor matchers: the CUDA kernels, their wrappers, and their
+plain PyTorch versions (port of ``match_pairs_fused`` and
+``match_pair_fused``, eacham_tpu/ops/match_kernel.py).
 
-For every frame pair the kernel (csrc/match_pairs.cu) reduces
-sim = d_i . d_j^T to packed row-wise and column-wise top-2 summaries
-without the similarity matrix ever reaching device memory. The Lowe ratio
-test on sqrt(2 - 2 s) in both directions and the mutual check stay in
-PyTorch, in the wrapper, as in the reference.
+For every frame pair the batched kernel (csrc/match_pairs.cu, bf16
+operands) reduces sim = d_i . d_j^T to packed row-wise and column-wise
+top-2 summaries without the similarity matrix ever reaching device
+memory; the single-pair kernel (csrc/match_pair.cu) does the same for one
+pair of descriptor sets of unequal sizes, with fp32 operands. The Lowe
+ratio test on sqrt(2 - 2 s) in both directions and the mutual check stay
+in PyTorch, in the wrappers, as in the reference.
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel or
 raises — there is no fallback from one to the other.
@@ -49,6 +51,25 @@ def _unpack(v: torch.Tensor, bits: int) -> torch.Tensor:
                        torch.bitwise_right_shift(v, bits).float() / QSCALE)
 
 
+def _merge_column_tiles(qr: torch.Tensor, tile_base: torch.Tensor):
+    """Packed column top-2 of ``qr`` [..., nt, ROW_TILE, K2] within each row
+    tile, merged across the ``nt`` tiles in order with the reference's rule.
+    Returns (packed best, global argmax, packed second), each [..., K2]."""
+    nt = qr.shape[-3]
+    ctop = qr.amax(-2)                                     # [..., nt, K2]
+    csec = torch.where(qr == ctop.unsqueeze(-2), IMIN, qr).amax(-2)
+    carg = (ctop & (ROW_TILE - 1)) + tile_base
+    cmax, cargm, csecm = ctop[..., 0, :], carg[..., 0, :], csec[..., 0, :]
+    for i in range(1, nt):
+        prev = cmax
+        take = ctop[..., i, :] > prev
+        csecm = torch.maximum(torch.maximum(csecm, csec[..., i, :]),
+                              torch.minimum(prev, ctop[..., i, :]))
+        cmax = torch.where(take, ctop[..., i, :], prev)
+        cargm = torch.where(take, carg[..., i, :], cargm)
+    return cmax, cargm, csecm
+
+
 def match_pairs_plain(desc_bf: torch.Tensor, mask: torch.Tensor,
                       pair_idx: torch.Tensor, chunk: int = 256):
     """The kernel's function in plain torch ops, ``chunk`` pairs at a time.
@@ -87,18 +108,8 @@ def match_pairs_plain(desc_bf: torch.Tensor, mask: torch.Tensor,
         outs[2].append(_unpack(sec, cbits))
 
         qr = torch.where(alive, q * (1 << rbits) | rows, IMIN).view(c, nt, ROW_TILE, Kp)
-        ctop = qr.amax(2)                                  # [c, nt, Kp]
-        csec = torch.where(qr == ctop[:, :, None], IMIN, qr).amax(2)
+        cmax, cargm, csecm = _merge_column_tiles(qr, tile_base)
         del qr
-        carg = (ctop & (ROW_TILE - 1)) + tile_base
-        cmax, cargm, csecm = ctop[:, 0], carg[:, 0], csec[:, 0]
-        for i in range(1, nt):                             # the reference's merge
-            prev = cmax
-            take = ctop[:, i] > prev
-            csecm = torch.maximum(torch.maximum(csecm, csec[:, i]),
-                                  torch.minimum(prev, ctop[:, i]))
-            cmax = torch.where(take, ctop[:, i], prev)
-            cargm = torch.where(take, carg[:, i], cargm)
         outs[3].append(_unpack(cmax, rbits))
         outs[4].append(cargm)
         outs[5].append(_unpack(csecm, rbits))
@@ -170,6 +181,12 @@ def match_pairs_raw(desc_bf: torch.Tensor, mask: torch.Tensor,
     raise ValueError(f"no matcher for device {desc_bf.device}")
 
 
+def _ratio_ok(best: torch.Tensor, second: torch.Tensor, ratio: float):
+    dbest = torch.sqrt(torch.clamp(2.0 - 2.0 * best, min=0.0))
+    dsecond = torch.sqrt(torch.clamp(2.0 - 2.0 * second, min=0.0))
+    return dbest < ratio * dsecond
+
+
 def decide(raw, mask: torch.Tensor, pair_idx: torch.Tensor, ratio: float):
     """Lowe ratio on L2 distances (d^2 = 2 - 2 s), both directions, plus the
     mutual check. Returns (match_j [P, Kp] int32, valid [P, Kp] bool)."""
@@ -178,14 +195,8 @@ def decide(raw, mask: torch.Tensor, pair_idx: torch.Tensor, ratio: float):
     pi = pair_idx.long()
     mask1 = live[pi[:, 0]]
     mask2 = live[pi[:, 1]]
-
-    def ratio_ok(best, second):
-        dbest = torch.sqrt(torch.clamp(2.0 - 2.0 * best, min=0.0))
-        dsecond = torch.sqrt(torch.clamp(2.0 - 2.0 * second, min=0.0))
-        return dbest < ratio * dsecond
-
-    ok1 = ratio_ok(b1, s1) & (b1 > NEG / 2) & mask1
-    ok2 = ratio_ok(b2, s2) & (b2 > NEG / 2) & mask2
+    ok1 = _ratio_ok(b1, s1, ratio) & (b1 > NEG / 2) & mask1
+    ok2 = _ratio_ok(b2, s2, ratio) & (b2 > NEG / 2) & mask2
     a1l = a1.long()
     kp = torch.arange(a1.shape[1], device=a1.device)
     mutual = torch.gather(a2, 1, a1l) == kp[None, :]
@@ -208,3 +219,106 @@ def match_pairs_fused(desc: torch.Tensor, kp_mask: torch.Tensor,
     raw = match_pairs_raw(desc_bf, mask, pair_idx, chunk)
     match_j, valid = decide(raw, mask, pair_idx, ratio)
     return match_j[:, :K], valid[:, :K]
+
+
+def match_pair_plain(d1: torch.Tensor, d2: torch.Tensor,
+                     mask1: torch.Tensor, mask2: torch.Tensor):
+    """The single-pair kernel's function in plain torch ops.
+
+    d1 [K1, D], d2 [K2, D] fp32, mask1 [K1], mask2 [K2] bool. Operands and
+    products are fp32; ``cbits`` spans the unpadded K2, the column packing
+    spans 128-row tiles of d1 (rows past K1 are dead). Returns the six raw
+    outputs: row best, row argmax, row second, each [K1]; column best,
+    column argmax, column second, each [K2].
+    """
+    K1, K2 = d1.shape[0], d2.shape[0]
+    cbits, rbits = _bits(K2), _bits(ROW_TILE)
+    dev = d1.device
+    alive = mask1.bool()[:, None] & mask2.bool()[None, :]
+    q = torch.round(torch.matmul(d1, d2.t()) * QSCALE).to(torch.int32)
+    cols = torch.arange(K2, dtype=torch.int32, device=dev)
+    rows = (torch.arange(K1, dtype=torch.int32, device=dev) % ROW_TILE)[:, None]
+
+    qc = torch.where(alive, q * (1 << cbits) | cols, IMIN)
+    top = qc.amax(1)
+    sec = torch.where(qc == top[:, None], IMIN, qc).amax(1)
+
+    nt = -(-K1 // ROW_TILE)
+    qr = torch.where(alive, q * (1 << rbits) | rows, IMIN)
+    qr = F.pad(qr, (0, 0, 0, nt * ROW_TILE - K1), value=IMIN).view(nt, ROW_TILE, K2)
+    tile_base = (torch.arange(nt, dtype=torch.int32, device=dev) * ROW_TILE)[:, None]
+    cmax, carg, csec = _merge_column_tiles(qr, tile_base)
+    return (_unpack(top, cbits), top & ((1 << cbits) - 1), _unpack(sec, cbits),
+            _unpack(cmax, rbits), carg, _unpack(csec, rbits))
+
+
+def match_pair_kernel(d1: torch.Tensor, d2: torch.Tensor,
+                      mask1: torch.Tensor, mask2: torch.Tensor):
+    """Launch csrc/match_pair.cu on CUDA tensors; same contract as
+    ``match_pair_plain``. Counts its launches in ``.launches``."""
+    from eacham_tpu_torch.ops.build import load
+
+    if not d1.is_cuda:
+        raise ValueError("match_pair_kernel takes CUDA tensors")
+    dev = d1.device
+    for name, d in (("d1", d1), ("d2", d2)):
+        if d.device != dev or d.dtype != torch.float32 or d.dim() != 2 \
+                or d.shape[1] != DESC_DIM or d.shape[0] == 0 \
+                or not d.is_contiguous() or d.data_ptr() % 16:
+            raise ValueError(f"{name} must be a non-empty, contiguous, 16-byte aligned "
+                             f"[K, {DESC_DIM}] fp32 tensor on {dev}")
+    K1, K2 = d1.shape[0], d2.shape[0]
+    for name, m, K in (("mask1", mask1, K1), ("mask2", mask2, K2)):
+        if m.device != dev or m.dtype != torch.bool or tuple(m.shape) != (K,) \
+                or not m.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [{K}] bool tensor on {dev}")
+
+    lib = load("match_pair")
+    lib.match_pair_scratch_ints.argtypes = [ctypes.c_int] * 2
+    lib.match_pair_scratch_ints.restype = ctypes.c_longlong
+    lib.match_pair_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8)
+    lib.match_pair_error_string.restype = ctypes.c_char_p
+    scratch = torch.empty(lib.match_pair_scratch_ints(K1, K2), dtype=torch.int32, device=dev)
+    outs = [torch.empty(K, dtype=dt, device=dev)
+            for K in (K1, K2) for dt in (torch.float32, torch.int32, torch.float32)]
+    with torch.cuda.device(dev):
+        err = lib.match_pair_launch(
+            d1.data_ptr(), d2.data_ptr(), mask1.data_ptr(), mask2.data_ptr(),
+            K1, K2, _bits(K2), scratch.data_ptr(), *(o.data_ptr() for o in outs),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("match_pair kernel launch failed: "
+                           + lib.match_pair_error_string(err).decode())
+    match_pair_kernel.launches += 1
+    return tuple(outs)
+
+
+match_pair_kernel.launches = 0
+
+
+def match_pair_fused(d1: torch.Tensor, d2: torch.Tensor, mask1: torch.Tensor,
+                     mask2: torch.Tensor, ratio: float = 0.8):
+    """Fused matching of one pair of descriptor sets.
+
+    d1 [K1, D], d2 [K2, D] L2-normalized fp32, mask1 [K1], mask2 [K2] bool.
+    Returns ``(match_j [K1] int32, valid [K1] bool)``: Lowe ratio on L2
+    distances (d^2 = 2 - 2 s) in both directions plus the mutual check. The
+    kernel for CUDA tensors, the plain version for CPU tensors.
+    """
+    d1 = d1.to(torch.float32).contiguous()
+    d2 = d2.to(torch.float32).contiguous()
+    mask1 = mask1.bool().contiguous()
+    mask2 = mask2.bool().contiguous()
+    if d1.is_cuda:
+        raw = match_pair_kernel(d1, d2, mask1, mask2)
+    elif d1.device.type == "cpu":
+        raw = match_pair_plain(d1, d2, mask1, mask2)
+    else:
+        raise ValueError(f"no matcher for device {d1.device}")
+    b1, a1, s1, b2, a2, s2 = raw
+    ok1 = _ratio_ok(b1, s1, ratio) & (b1 > NEG / 2) & mask1
+    ok2 = _ratio_ok(b2, s2, ratio) & (b2 > NEG / 2) & mask2
+    a1l = a1.long()
+    mutual = a2[a1l] == torch.arange(d1.shape[0], device=d1.device)
+    return a1, ok1 & mutual & ok2[a1l]

@@ -21,6 +21,63 @@ def all_pairs_index(n_frames: int) -> np.ndarray:
     return np.stack([ii, jj], -1).astype(np.int32)
 
 
+def candidate_pairs(
+    desc: torch.Tensor,        # [N, K, D] L2-normalized descriptors
+    kp_mask: torch.Tensor,     # [N, K]
+    window: int = 10,
+    retrieval_k: int = 5,
+    ladder: bool = True,
+) -> np.ndarray:
+    """Candidate-pair subset: sequential window + ladder + retrieval.
+
+    Every frame is paired with its ``window`` successors (video order),
+    with frames at exponentially spaced offsets (2 * window, 4 * window,
+    ...: the "ladder", which constrains the trajectory at all scales for
+    O(N log N) pairs), and with its ``retrieval_k`` most similar non-window
+    frames by pooled-descriptor similarity (one [N, D] x [D, N] product),
+    which restores loop-closure edges the ladder misses.
+
+    Returns [P, 2] int32 on the host with i < j, sorted, deduplicated.
+    """
+    N = desc.shape[0]
+    if window <= 0 or window >= N:
+        return all_pairs_index(N)
+
+    # global frame descriptor: masked mean of local descriptors, renormalized
+    m = kp_mask[..., None].to(desc.dtype)
+    g = (desc * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+    g = g / torch.clamp(torch.linalg.vector_norm(g, dim=-1, keepdim=True), min=1e-8)
+    sim = (g @ g.t()).cpu().numpy()
+
+    ii = np.repeat(np.arange(N), window)
+    jj = ii + np.tile(np.arange(1, window + 1), N)
+    keep = jj < N
+    pairs = [np.stack([ii[keep], jj[keep]], -1)]
+
+    if ladder:
+        off = 2 * window
+        while off < N:
+            a = np.arange(N - off)
+            pairs.append(np.stack([a, a + off], -1))
+            off *= 2
+
+    if retrieval_k > 0:
+        # mask self + window band, then take top-k most similar per frame
+        d = np.abs(np.arange(N)[:, None] - np.arange(N)[None, :])
+        sim = np.where(d <= window, -np.inf, sim)
+        k = min(retrieval_k, max(N - window - 1, 0))
+        if k > 0:
+            top = np.argpartition(-sim, k - 1, axis=1)[:, :k]   # [N, k]
+            a = np.repeat(np.arange(N), k)
+            b = top.reshape(-1)
+            ok = np.isfinite(sim[a, b])
+            a, b = a[ok], b[ok]
+            pairs.append(np.stack([np.minimum(a, b), np.maximum(a, b)], -1))
+
+    allp = np.concatenate(pairs, axis=0).astype(np.int32)
+    return np.unique(allp, axis=0)
+
+
 def invert_matches(match_ij: torch.Tensor, valid_ij: torch.Tensor):
     """Invert kp_i -> kp_j maps into kp_j -> kp_i maps by scatter.
 
@@ -104,18 +161,21 @@ def build_match_tables(
     chunk: int = 16,
     verify: tuple | None = None,   # (keypoints, intr, generator, px_thr, n_hyp)
     verify_sample_idx: torch.Tensor | None = None,
+    pair_idx: np.ndarray | None = None,
 ):
     """Exhaustive matching + epipolar verification + inverse tables.
 
     ``chunk`` bounds the plain matcher's memory on the CPU (the kernel
-    takes every pair in one launch).
+    takes every pair in one launch). ``pair_idx`` (host [P, 2], i < j)
+    overrides the all-pairs enumeration with a candidate subset.
 
     Returns ``(pair_idx [P, 2] int32, pair_ok, match_ij, valid_ij,
     match_ji, valid_ji)`` on the descriptors' device — P includes the
     bucket padding.
     """
-    pair_idx = torch.as_tensor(bucket_pairs(all_pairs_index(desc.shape[0])),
-                               device=desc.device)
+    if pair_idx is None:
+        pair_idx = all_pairs_index(desc.shape[0])
+    pair_idx = torch.as_tensor(bucket_pairs(pair_idx), device=desc.device)
     match_ij, valid_ij, pair_ok = match_all_pairs(
         desc, kp_mask, pair_idx, ratio=ratio, min_matches=min_matches,
         chunk=chunk)

@@ -1,11 +1,12 @@
 """Incremental SfM driver (port of eacham_tpu/sfm/pipeline.py), front half.
 
 ``initialize_sfm`` takes features to the seeded two-view map: the match
-graph with epipolar verification, the init-pair ranking and search, and
-the seeding of the map. It is exactly what the reference's ``run_sfm``
-does before its registration sweep, on the single-device, all-pairs,
-built-in-matcher path. PnP registration, the sweep and bundle adjustment
-come with the next slices of the port.
+graph with epipolar verification (built here over all pairs or a windowed
+candidate subset, or handed in as ``match_tables`` by another matcher such
+as the deep frontend), the init-pair ranking and search, and the seeding
+of the map. It is exactly what the reference's ``run_sfm`` does before its
+registration sweep, on a single device. PnP registration, the sweep and
+bundle adjustment come with the next slices of the port.
 """
 
 from __future__ import annotations
@@ -18,7 +19,10 @@ import torch
 
 from eacham_tpu_torch.device import as_tensor, resolve_device
 from eacham_tpu_torch.geometry.camera import intrinsics_from_image_size
-from eacham_tpu_torch.sfm.matches import build_match_tables
+from eacham_tpu_torch.sfm.matches import (
+    all_pairs_index, build_match_tables, candidate_pairs, invert_matches,
+    verify_matches_epipolar,
+)
 from eacham_tpu_torch.sfm.scene import Scene, alloc_landmarks, make_scene
 from eacham_tpu_torch.sfm.twoview import find_best_pair
 
@@ -176,15 +180,22 @@ def initialize_sfm(
     (``initialized`` False and the pair None when no pair passes), and the
     wall seconds of each stage. ``generator`` drives every RANSAC draw; by
     default it is seeded from ``options.seed``.
+
+    By default pairs are matched with the fused descriptor matcher, over
+    all pairs or, with ``options.pair_window > 0``, over the windowed
+    candidate subset. ``match_tables`` plugs in another matcher: either the
+    6-tuple of ``features.deep.frontend.build_match_tables_deep``
+    (``pair_idx, pair_ok, match_ij, valid_ij, match_ji, valid_ji``, taken
+    as is: already verified), or ``(match_ij [P, K], valid_ij [P, K],
+    pair_ok [P])`` over all pairs in canonical i < j order, which gets the
+    same epipolar cleanup as the built-in matcher's tables.
     """
     opt = options
     if opt.n_devices > 1:
         raise NotImplementedError("initialize_sfm runs on one device")
-    if opt.pair_window > 0:
-        raise NotImplementedError("windowed candidate pairs (pair_window > 0) "
-                                  "are not ported yet")
-    if match_tables is not None:
-        raise NotImplementedError("external match tables are not ported yet")
+    if match_tables is not None and len(match_tables) not in (3, 6):
+        raise ValueError("match_tables is a 3-tuple or a 6-tuple; got "
+                         f"{len(match_tables)} entries")
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(opt.seed)
@@ -207,12 +218,31 @@ def initialize_sfm(
 
     # ---- match graph ------------------------------------------------------
     t = time.perf_counter()
-    verify = None
-    if opt.verify_hyps > 0:
-        verify = (keypoints, intr, generator, opt.max_repr_error, opt.verify_hyps)
-    pair_idx, pair_ok, m_ij, v_ij, m_ji, v_ji = build_match_tables(
-        descriptors, kp_mask, ratio=opt.match_ratio, min_matches=opt.min_matches,
-        chunk=opt.match_chunk, verify=verify)
+    if match_tables is None:
+        cand = None
+        if opt.pair_window > 0:
+            cand = candidate_pairs(descriptors, kp_mask, window=opt.pair_window,
+                                   retrieval_k=opt.pair_retrieval_k, ladder=opt.pair_ladder)
+            log(f"candidate pairs: {cand.shape[0]} of {N * (N - 1) // 2}")
+        verify = None
+        if opt.verify_hyps > 0:
+            verify = (keypoints, intr, generator, opt.max_repr_error, opt.verify_hyps)
+        pair_idx, pair_ok, m_ij, v_ij, m_ji, v_ji = build_match_tables(
+            descriptors, kp_mask, ratio=opt.match_ratio, min_matches=opt.min_matches,
+            chunk=opt.match_chunk, verify=verify, pair_idx=cand)
+    elif len(match_tables) == 6:
+        pair_idx, pair_ok, m_ij, v_ij, m_ji, v_ji = (
+            as_tensor(x, dev) for x in match_tables)
+    else:
+        m_ij, v_ij, pair_ok = (as_tensor(x, dev) for x in match_tables)
+        pair_idx = torch.as_tensor(all_pairs_index(N), device=dev)
+        if opt.verify_hyps > 0:
+            v_ij = verify_matches_epipolar(
+                keypoints, pair_idx, m_ij, v_ij, intr, generator,
+                px_threshold=opt.max_repr_error, n_hyp=opt.verify_hyps)
+            pair_ok = pair_ok & (v_ij.sum(-1) > opt.min_matches)
+        v_ij = v_ij & pair_ok[:, None]
+        m_ji, v_ji = invert_matches(m_ij, v_ij)
     _sync(dev)
     seconds["match_graph"] = time.perf_counter() - t
     del descriptors

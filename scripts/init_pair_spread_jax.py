@@ -39,6 +39,8 @@ def main():
     ap.add_argument("tables")
     ap.add_argument("--seeds", type=int, default=32)
     ap.add_argument("--max-dim", type=float, default=512.0)
+    ap.add_argument("--min-initial-inliers", type=int, default=100,
+                    help="100 on the classical bench tables, 60 on the deep path's")
     args = ap.parse_args()
 
     import jax
@@ -49,8 +51,8 @@ def main():
     from eacham_tpu.sfm.scene import make_scene
     from eacham_tpu.sfm.twoview import find_best_pair
 
-    # the bench's init options (bench.py)
-    opt = SfmOptions(min_initial_inliers=100, init_min_tri_angle_deg=1.0,
+    # the bench's init options (bench.py; scripts/bench_deep.py lowers the inliers)
+    opt = SfmOptions(min_initial_inliers=args.min_initial_inliers, init_min_tri_angle_deg=1.0,
                      ransac_hyps_e=256, ransac_hyps_h=128)
     d = np.load(args.tables)
     m_ji, v_ji = invert_matches(jnp.asarray(d["match_ij"]), jnp.asarray(d["valid_ij"]))

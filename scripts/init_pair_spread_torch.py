@@ -28,6 +28,8 @@ def main():
     ap.add_argument("tables")
     ap.add_argument("--seeds", type=int, default=32)
     ap.add_argument("--max-dim", type=float, default=512.0)
+    ap.add_argument("--min-initial-inliers", type=int, default=100,
+                    help="100 on the classical bench tables, 60 on the deep path's")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
@@ -41,8 +43,8 @@ def main():
     from eacham_tpu_torch.utils.evaluate import relative_pose_error_deg
 
     dev = resolve_device(args.device)
-    # the bench's init options (bench.py)
-    opt = SfmOptions(min_initial_inliers=100, init_min_tri_angle_deg=1.0,
+    # the bench's init options (bench.py; scripts/bench_deep.py lowers the inliers)
+    opt = SfmOptions(min_initial_inliers=args.min_initial_inliers, init_min_tri_angle_deg=1.0,
                      ransac_hyps_e=256, ransac_hyps_h=128)
     d = np.load(args.tables)
     t = {k: torch.as_tensor(d[k], device=dev) for k in (

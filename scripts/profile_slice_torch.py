@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""Where the port's first slice spends its time on the card.
+"""Where the port's slices spend their time on the card, in steady state.
 
-    python scripts/profile_slice_torch.py [--runs 3] [--trace trace.json]
+    python scripts/profile_slice_torch.py [--frontend classical|deep] [--runs 3]
+                                          [--trace trace.json]
 
-Renders the 100-frame bench workload (as ``chip_smoke.py``), runs
-``extract_features`` -> ``initialize_sfm`` once to warm up, then ``--runs``
+Renders the 100-frame bench workload (as ``chip_smoke.py``), runs the
+chosen path once to warm up (``extract_features`` -> ``initialize_sfm``,
+or with ``--frontend deep`` ``extract_deep_batch`` ->
+``build_match_tables_deep`` -> ``initialize_sfm(match_tables=...)`` on the
+shipped weights, at ``chip_smoke.py``'s sizes and options), then ``--runs``
 more times with stage timings, the last of them under ``torch.profiler``.
 Prints the card, the steady-state stage seconds of every timed run, the
 device-busy share of the profiled run (device time summed over all
@@ -41,8 +45,16 @@ def slice_once(images, intr, dev):
                 total=time.perf_counter() - t0), stats
 
 
+def deep_once(images, intr, dev, models):
+    from chip_smoke import deep_stages
+
+    out = deep_stages(models, images, intr, dev)
+    return out[-1], out[5]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--frontend", choices=("classical", "deep"), default="classical")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", help="also write a Chrome trace of the profiled run")
@@ -60,14 +72,21 @@ def main():
     print(card, flush=True)
     images, _, intr = render_workload()
     images = torch.as_tensor(images, device=dev)
-    secs, _ = slice_once(images, intr, dev)
+    once = slice_once
+    if args.frontend == "deep":
+        from functools import partial
+
+        from eacham_tpu_torch.features.deep.frontend import load_frontend_params
+
+        once = partial(deep_once, models=load_frontend_params(device=dev)[:2])
+    secs, _ = once(images, intr, dev)
     print("warm-up (s): " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()), flush=True)
     for r in range(args.runs):
         if r < args.runs - 1:
-            secs, stats = slice_once(images, intr, dev)
+            secs, stats = once(images, intr, dev)
         else:
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                secs, stats = slice_once(images, intr, dev)
+                secs, stats = once(images, intr, dev)
         print(f"run {r} (s){' under the profiler' if r == args.runs - 1 else ''} "
               f"on {card}: " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
               + f"; init pair {stats['init_pair']}", flush=True)

@@ -29,6 +29,10 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     raise, so a stray import of JAX or of eacham_tpu fails here."""
     mods = _modules()
     assert "eacham_tpu_torch.ops.match_kernel" in mods and len(mods) > 20
+    assert {"eacham_tpu_torch.ops.attention", "eacham_tpu_torch.convert",
+            "eacham_tpu_torch.features.deep.superpoint",
+            "eacham_tpu_torch.features.deep.lightglue",
+            "eacham_tpu_torch.features.deep.frontend"} <= set(mods)
     code = "\n".join([
         "import sys",
         f"sys.path.insert(0, {str(ROOT)!r})",
@@ -70,12 +74,26 @@ def test_entry_points_refuse_a_missing_card():
     """Without a card, asking for the card raises instead of falling back."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
+    from eacham_tpu_torch.features.deep import frontend as deep
+    from eacham_tpu_torch.features.deep.lightglue import LightGlueMatcher
+    from eacham_tpu_torch.features.deep.superpoint import SuperPointNet
     from eacham_tpu_torch.features.frontend import extract_features
     from eacham_tpu_torch.sfm.pipeline import initialize_sfm
 
     images = np.zeros((1, 64, 64), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract_features(images, max_keypoints=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deep.load_frontend_params()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deep.extract_deep_batch(SuperPointNet(), images, max_keypoints=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deep.build_match_tables_deep(
+            LightGlueMatcher(n_layers=1), np.zeros((2, 8, 2), np.float32),
+            np.zeros((2, 8, 256), np.float32), np.ones((2, 8), bool), (64, 64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        deep.match_images_e2e(SuperPointNet(), LightGlueMatcher(n_layers=1),
+                              np.zeros((2, 64, 64), np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize_sfm(np.zeros((2, 8, 2), np.float32), np.zeros((2, 8, 256), np.float32),
                        np.ones((2, 8), bool), (64, 64))

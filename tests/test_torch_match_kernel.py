@@ -1,9 +1,10 @@
-"""The port's batched fused matcher (eacham_tpu_torch.ops.match_kernel)
-against the JAX package's Pallas kernel run in interpret mode, on the CPU.
+"""The port's fused matchers (eacham_tpu_torch.ops.match_kernel), batched
+and single-pair, against the JAX package's Pallas kernels run in interpret
+mode, on the CPU.
 
-On the CPU the port runs the kernel's plain PyTorch version; the CUDA
-kernel itself is compared with that plain version by the test marked
-``cuda``, which runs only where a card is present. The JAX package is
+On the CPU the port runs each kernel's plain PyTorch version; the CUDA
+kernels themselves are compared with those plain versions by the tests
+marked ``cuda``, which run only where a card is present. The JAX package is
 imported inside the test that uses it, so that the ``cuda`` test also runs
 on a machine without JAX:
 
@@ -168,3 +169,109 @@ def test_cuda_kernel_bit_exact_on_exact_inputs():
     raw_p = mk.match_pairs_plain(desc_bf, m, pi)
     for a, b in zip(raw_k, raw_p):
         assert torch.equal(a, b)
+
+
+def _pair_fixture(seed, K1=200, K2=170, D=256):
+    """One pair with 120 true matches (tests/test_ops.py)."""
+    rng = np.random.default_rng(seed)
+    d2 = rng.normal(size=(K2, D)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    d1 = np.zeros((K1, D), np.float32)
+    d1[:120] = d2[:120] + 0.02 * rng.normal(size=(120, D)).astype(np.float32)
+    d1[120:] = rng.normal(size=(K1 - 120, D)).astype(np.float32)
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    return d1, d2, rng.random(K1) > 0.15, rng.random(K2) > 0.15
+
+
+def test_single_pair_matches_pallas_interpret_and_jnp(rng):
+    """Equal ``valid`` and equal indices where valid, against both the
+    Pallas kernel in interpret mode and the jnp matcher: the fixture's
+    matches are far from any ratio-test tie, so fp32 summation order does
+    not show (K1 = 200 pads to two row tiles, K2 = 170 is ragged)."""
+    import jax.numpy as jnp
+    from eacham_tpu.features.matching import match_pair as jax_match_pair
+    from eacham_tpu.ops.match_kernel import match_pair_fused as jax_match_pair_fused
+
+    d1, d2, m1, m2 = _pair_fixture(0)
+    a, v = mk.match_pair_fused(*(torch.as_tensor(x) for x in (d1, d2, m1, m2)))
+    assert a.shape == (200,) and a.dtype == torch.int32 and v.dtype == torch.bool
+    args = tuple(jnp.asarray(x) for x in (d1, d2, m1, m2))
+    for a_ref, v_ref in (jax_match_pair_fused(*args, interpret=True), jax_match_pair(*args)):
+        np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+        np.testing.assert_array_equal(a.numpy()[v.numpy()], np.asarray(a_ref)[v.numpy()])
+    assert v.sum() > 50
+
+
+def test_single_pair_raw_outputs_equal_pallas_on_exact_inputs():
+    """With exact arithmetic the decisions agree everywhere, ties and the
+    cross-tile column merge included (K1 = 300: three row tiles; every
+    entry is a multiple of 1/16, so every product sum is exact)."""
+    import jax.numpy as jnp
+    from eacham_tpu.ops.match_kernel import match_pair_fused as jax_match_pair_fused
+
+    r = np.random.default_rng(3)
+    d1 = (r.integers(-1, 2, size=(300, 256)) / 16.0).astype(np.float32)
+    d2 = (r.integers(-1, 2, size=(170, 256)) / 16.0).astype(np.float32)
+    d1[100:200] = d2[:100]                       # true matches among the ties
+    m1, m2 = r.random(300) > 0.2, r.random(170) > 0.2
+    a, v = mk.match_pair_fused(*(torch.as_tensor(x) for x in (d1, d2, m1, m2)), ratio=0.95)
+    a_ref, v_ref = jax_match_pair_fused(*(jnp.asarray(x) for x in (d1, d2, m1, m2)),
+                                        ratio=0.95, interpret=True)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(a_ref))
+    assert v.any()
+
+
+def test_single_pair_agrees_with_batched_plain_packing():
+    """On one pair of equal, tile-aligned sizes the single-pair plain
+    version (fp32 operands) and the batched one (bf16 operands) follow the
+    same packing rule: on bf16-exact inputs all six raw outputs are equal."""
+    r = np.random.default_rng(4)
+    desc = torch.as_tensor((r.integers(-1, 2, size=(2, 256, 256)) / 16.0).astype(np.float32))
+    mask = torch.as_tensor(r.random((2, 256)) > 0.2)
+    desc_bf, m = mk.prepare(desc, mask)
+    batched = mk.match_pairs_plain(desc_bf, m, torch.tensor([[0, 1]]))
+    single = mk.match_pair_plain(desc[0], desc[1], mask[0], mask[1])
+    for a, b in zip(batched, single):
+        assert torch.equal(a[0], b)
+
+
+def test_single_pair_wrapper_refuses_non_cuda_tensors():
+    d1, d2, m1, m2 = (torch.as_tensor(x) for x in _pair_fixture(0))
+    with pytest.raises(ValueError):
+        mk.match_pair_kernel(d1, d2, m1, m2)
+    assert mk.match_pair_kernel.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K1,K2", [(200, 170), (1024, 1024), (1, 3)])
+def test_cuda_single_pair_kernel_matches_plain(K1, K2):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    r = np.random.default_rng(5)
+    # bf16-exact small-integer entries: every product sum is exact, so the
+    # raw outputs must be equal bit for bit, ties included
+    d1 = torch.as_tensor((r.integers(-1, 2, size=(K1, 256)) / 16.0).astype(np.float32), device=dev)
+    d2 = torch.as_tensor((r.integers(-1, 2, size=(K2, 256)) / 16.0).astype(np.float32), device=dev)
+    m1 = torch.as_tensor(r.random(K1) > 0.2, device=dev)
+    m2 = torch.as_tensor(r.random(K2) > 0.2, device=dev)
+    before = mk.match_pair_kernel.launches
+    raw_k = mk.match_pair_kernel(d1, d2, m1, m2)
+    torch.cuda.synchronize()
+    assert mk.match_pair_kernel.launches == before + 1
+    for a, b in zip(raw_k, mk.match_pair_plain(d1, d2, m1, m2)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_single_pair_decisions_on_real_descriptors():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    d1, d2, m1, m2 = (torch.as_tensor(x, device=dev) for x in _pair_fixture(1))
+    a, v = mk.match_pair_fused(d1, d2, m1, m2)
+    torch.cuda.synchronize()
+    a_ref, v_ref = mk.match_pair_fused(d1.cpu(), d2.cpu(), m1.cpu(), m2.cpu())
+    assert torch.equal(v.cpu(), v_ref) and torch.equal(a.cpu()[v_ref], a_ref[v_ref])
+    assert int(v.sum()) > 50
