@@ -19,16 +19,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from eacham_tpu_torch.device import resolve_device
 from eacham_tpu_torch.features.deep.lightglue import AttentionBlock, LightGlueMatcher
 from eacham_tpu_torch.features.deep.superpoint import SuperPointNet
 from eacham_tpu_torch.sfm.scene import Scene
 
 
-def scene_from_numpy(d, device: str | torch.device = "cpu") -> Scene:
-    """dict (or NamedTuple) of array-likes with the ``Scene`` fields -> Scene."""
+def scene_from_numpy(d, device: str | torch.device | None = None) -> Scene:
+    """dict (or NamedTuple) of array-likes with the ``Scene`` fields -> Scene
+    on ``device``: the card by default (an error without one), the CPU only
+    when asked (``device="cpu"``)."""
     if hasattr(d, "_asdict"):
         d = d._asdict()
-    return Scene(**{f: torch.as_tensor(np.array(d[f]), device=device)
+    dev = resolve_device(device)
+    return Scene(**{f: torch.as_tensor(np.array(d[f]), device=dev)
                     for f in Scene._fields})
 
 

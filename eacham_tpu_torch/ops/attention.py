@@ -48,14 +48,11 @@ def _check(name: str, t: torch.Tensor, shape, dev) -> None:
                          f"{tuple(shape)} on {dev}; got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def masked_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            mask_kv: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/masked_attention.cu on CUDA tensors; same contract as
-    ``masked_attention_plain``. Counts its launches in ``.launches``."""
-    from eacham_tpu_torch.ops.build import load
-
-    if not q.is_cuda:
-        raise ValueError("masked_attention_kernel takes CUDA tensors")
+def check_kernel_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask_kv: torch.Tensor):
+    """Raise ValueError on anything the kernel does not take: q, k, v must be
+    contiguous, 16-byte aligned fp32 tensors [B, H, N, 64] on one device,
+    mask_kv a contiguous [B, Nk] bool tensor there. Returns (B, H, Nq, Nk)."""
     if q.dim() != 4 or q.shape[3] != HEAD_DIM:
         raise ValueError(f"q must be [B, H, Nq, {HEAD_DIM}]; got {tuple(q.shape)}")
     B, H, Nq, D = q.shape
@@ -69,6 +66,18 @@ def masked_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or mask_kv.device != q.device or not mask_kv.is_contiguous():
         raise ValueError(f"mask_kv must be a contiguous [B, Nk] = {(B, Nk)} bool tensor "
                          f"on {q.device}")
+    return B, H, Nq, Nk
+
+
+def masked_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            mask_kv: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/masked_attention.cu on CUDA tensors; same contract as
+    ``masked_attention_plain``. Counts its launches in ``.launches``."""
+    from eacham_tpu_torch.ops.build import load
+
+    if not q.is_cuda:
+        raise ValueError("masked_attention_kernel takes CUDA tensors")
+    B, H, Nq, Nk = check_kernel_args(q, k, v, mask_kv)
 
     lib = load("masked_attention")
     lib.masked_attention_launch.argtypes = (

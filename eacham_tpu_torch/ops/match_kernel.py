@@ -119,17 +119,17 @@ def match_pairs_plain(desc_bf: torch.Tensor, mask: torch.Tensor,
     return tuple(torch.cat(o) for o in outs)
 
 
-def match_pairs_kernel(desc_bf: torch.Tensor, mask: torch.Tensor,
-                       pair_idx: torch.Tensor):
-    """Launch csrc/match_pairs.cu on CUDA tensors; same contract as
-    ``match_pairs_plain``. Counts its launches in ``.launches``."""
-    from eacham_tpu_torch.ops.build import load
-
-    if not desc_bf.is_cuda:
-        raise ValueError("match_pairs_kernel takes CUDA tensors")
+def check_pairs_kernel_args(desc_bf: torch.Tensor, mask: torch.Tensor,
+                            pair_idx: torch.Tensor):
+    """Raise ValueError on anything the batched kernel does not take: desc_bf
+    a contiguous, 16-byte aligned [N, Kp, 256] bf16 table (the kernel reads it
+    through a TMA tensor map) with Kp a multiple of 128, mask a contiguous
+    [N, Kp] uint8 tensor and pair_idx a contiguous [P, 2] int32 tensor with
+    frame indices in [0, N), both on the table's device. Returns (N, Kp, P)."""
     if desc_bf.dtype != torch.bfloat16 or desc_bf.dim() != 3 \
-            or desc_bf.shape[2] != DESC_DIM or not desc_bf.is_contiguous():
-        raise ValueError("desc must be a contiguous [N, Kp, 256] bf16 tensor")
+            or desc_bf.shape[2] != DESC_DIM or not desc_bf.is_contiguous() \
+            or desc_bf.data_ptr() % 16:
+        raise ValueError("desc must be a contiguous, 16-byte aligned [N, Kp, 256] bf16 tensor")
     N, Kp, _ = desc_bf.shape
     if Kp % ROW_TILE:
         raise ValueError(f"Kp={Kp} is not a multiple of {ROW_TILE}")
@@ -142,23 +142,35 @@ def match_pairs_kernel(desc_bf: torch.Tensor, mask: torch.Tensor,
     P = pair_idx.shape[0]
     if P and bool(((pair_idx < 0) | (pair_idx >= N)).any()):
         raise ValueError("pair_idx holds a frame index outside [0, N)")
+    return N, Kp, P
+
+
+def match_pairs_kernel(desc_bf: torch.Tensor, mask: torch.Tensor,
+                       pair_idx: torch.Tensor):
+    """Launch csrc/match_pairs.cu on CUDA tensors; same contract as
+    ``match_pairs_plain``. Counts its launches in ``.launches``."""
+    from eacham_tpu_torch.ops.build import load
+
+    if not desc_bf.is_cuda:
+        raise ValueError("match_pairs_kernel takes CUDA tensors")
+    N, Kp, P = check_pairs_kernel_args(desc_bf, mask, pair_idx)
 
     lib = load("match_pairs")
     if Kp > lib.match_pairs_max_kp():
         raise ValueError(f"Kp={Kp} exceeds the kernel's shared-memory limit "
                          f"({lib.match_pairs_max_kp()})")
     lib.match_pairs_launch.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7)
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7)
     lib.match_pairs_error_string.restype = ctypes.c_char_p
     dev = desc_bf.device
     outs = [torch.empty((P, Kp), dtype=dt, device=dev)
             for dt in (torch.float32, torch.int32, torch.float32) * 2]
-    if P == 0:
+    if P == 0 or Kp == 0:
         return tuple(outs)
     with torch.cuda.device(dev):
         err = lib.match_pairs_launch(
             desc_bf.data_ptr(), mask.data_ptr(), pair_idx.data_ptr(),
-            P, Kp, _bits(Kp), *(o.data_ptr() for o in outs),
+            N, P, Kp, _bits(Kp), *(o.data_ptr() for o in outs),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("match_pairs kernel launch failed: "

@@ -97,6 +97,44 @@ def test_wrapper_refuses_non_cuda_tensors():
     assert at.masked_attention_kernel.launches == 0
 
 
+def _misaligned(t):
+    """The same values, contiguous, 4 bytes off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# what the kernel wrapper must refuse before it launches anything; the checks
+# do not depend on the device, so they are held here on CPU tensors
+BAD_ARGS = {
+    "q_not_contiguous": lambda q, k, v, m: (q.transpose(1, 2), k, v, m),
+    "q_strided_rows": lambda q, k, v, m: (q[:, :, ::2], k, v, m[:, :]),
+    "fp64": lambda q, k, v, m: (q.double(), k.double(), v.double(), m),
+    "k_half": lambda q, k, v, m: (q, k.half(), v, m),
+    "head_dim_32": lambda q, k, v, m: (q[..., :32].contiguous(), k, v, m),
+    "q_3d": lambda q, k, v, m: (q[0], k, v, m),
+    "k_3d": lambda q, k, v, m: (q, k[0], v, m),
+    "k_v_lengths_differ": lambda q, k, v, m: (q, k, v[:, :, :-1].contiguous(), m),
+    "k_other_batch": lambda q, k, v, m: (q, k[:1], v[:1], m[:1]),
+    "mask_too_short": lambda q, k, v, m: (q, k, v, m[:, :-1].contiguous()),
+    "mask_not_bool": lambda q, k, v, m: (q, k, v, m.to(torch.uint8)),
+    "mask_not_contiguous": lambda q, k, v, m: (q, k, v, m.t().contiguous().t()),
+    "q_misaligned": lambda q, k, v, m: (_misaligned(q), k, v, m),
+    "v_misaligned": lambda q, k, v, m: (q, k, _misaligned(v), m),
+    "k_other_device": lambda q, k, v, m: (q, k.to("meta"), v, m),
+    "mask_other_device": lambda q, k, v, m: (q, k, v, m.to("meta")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_ARGS))
+def test_kernel_argument_checks_refuse(case):
+    good = tuple(torch.as_tensor(a) for a in _inputs(0, 2, 2, 12, 10, 0.5))
+    assert at.check_kernel_args(*good) == (2, 2, 12, 10)
+    with pytest.raises(ValueError):
+        at.check_kernel_args(*BAD_ARGS[case](*good))
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -106,7 +144,36 @@ def _need_card():
 # the deep path's shape, then the ragged and the small cases
 CUDA_CASES = {"main_path": (4, 4, 1024, 1024, 0.8), "self": CASES["self"],
               "cross_ragged": CASES["cross_ragged"], "one_key": (1, 1, 5, 1, 1.0),
-              "dead_tiles": (2, 4, 300, 300, 0.02)}
+              "dead_tiles": (2, 4, 300, 300, 0.02),
+              # the kernel's key tile is 32 wide, its query tile 128 tall
+              "nk_under_a_tile": (2, 4, 200, 7, 1.0), "nk_tile_plus_one": (2, 4, 200, 33, 1.0),
+              "nk_two_tiles_plus_one": (1, 2, 129, 65, 0.9), "nq_one": (3, 4, 1, 100, 0.6),
+              "nq_tile_plus_one": (1, 4, 129, 64, 1.0)}
+
+
+def _mask_last_tile_only(mask):
+    """Live keys only in the last 32-key tile."""
+    mask[:, : (mask.shape[1] - 1) // 32 * 32] = False
+    mask[:, -1] = True
+
+
+def _mask_dead_tiles_in_the_middle(mask):
+    """Whole dead key tiles between live ones."""
+    mask[:, 32:160] = False
+    mask[:, 224:256] = False
+    mask[:, 0] = True
+    mask[:, -1] = True
+
+
+def _mask_dead_batch_entry(mask):
+    mask[0] = False
+
+
+# name -> (B, H, Nq, Nk, live share, edit of the random mask)
+CUDA_MASKS = {"last_tile_only": (2, 4, 150, 300, 0.7, _mask_last_tile_only),
+              "last_tile_only_ragged": (2, 2, 64, 333, 0.7, _mask_last_tile_only),
+              "dead_tiles_in_the_middle": (2, 4, 150, 300, 0.7, _mask_dead_tiles_in_the_middle),
+              "dead_batch_entry": (3, 4, 130, 70, 0.5, _mask_dead_batch_entry)}
 
 
 @pytest.mark.cuda
@@ -120,6 +187,25 @@ def test_cuda_kernel_matches_plain(case):
     assert at.masked_attention_kernel.launches == before + 1
     ref = at.masked_attention_plain(q, k, v, mask)
     assert float((out - ref).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_MASKS))
+def test_cuda_kernel_matches_plain_on_structured_masks(case):
+    """atol 1e-5 as above; rows of a batch entry without a live key are
+    exact zeros."""
+    dev = _need_card()
+    *shape, edit = CUDA_MASKS[case]
+    q, k, v, mask = _inputs(3, *shape)
+    edit(mask)
+    q, k, v, mask = (torch.as_tensor(a, device=dev) for a in (q, k, v, mask))
+    out = at.masked_attention_kernel(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert bool(out.isfinite().all())
+    assert float((out - at.masked_attention_plain(q, k, v, mask)).abs().max()) < 1e-5
+    dead = ~mask.any(1)
+    if bool(dead.any()):
+        assert float(out[dead].abs().max()) == 0.0
 
 
 @pytest.mark.cuda

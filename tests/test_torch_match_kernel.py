@@ -133,6 +133,135 @@ def test_wrapper_refuses_non_cuda_tensors(rng):
     assert mk.match_pairs_kernel.launches == 0
 
 
+def _good_pairs_args():
+    r = np.random.default_rng(0)
+    desc = torch.as_tensor(r.normal(size=(3, 128, 256)).astype(np.float32))
+    desc_bf, m = mk.prepare(desc, torch.ones(3, 128, dtype=torch.bool))
+    return desc_bf, m, torch.tensor([[0, 1], [1, 2]], dtype=torch.int32)
+
+
+def _misaligned(t):
+    """The same values, contiguous, one element off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# what the batched kernel's wrapper must refuse before it launches anything;
+# the checks do not depend on the device, so they are held here on CPU tensors
+BAD_PAIRS_ARGS = {
+    "desc_fp32": lambda d, m, p: (d.float(), m, p),
+    "desc_2d": lambda d, m, p: (d[0], m, p),
+    "desc_width_128": lambda d, m, p: (d[..., :128].contiguous(), m, p),
+    "desc_not_contiguous": lambda d, m, p: (d.transpose(0, 1).contiguous().transpose(0, 1), m, p),
+    "desc_misaligned_for_the_tensor_map": lambda d, m, p: (_misaligned(d), m, p),
+    "kp_not_a_tile_multiple": lambda d, m, p: (d[:, :96].contiguous(), m[:, :96].contiguous(), p),
+    "mask_bool": lambda d, m, p: (d, m.bool(), p),
+    "mask_wrong_shape": lambda d, m, p: (d, m[:2].contiguous(), p),
+    "mask_not_contiguous": lambda d, m, p: (d, m.t().contiguous().t(), p),
+    "mask_other_device": lambda d, m, p: (d, m.to("meta"), p),
+    "pairs_int64": lambda d, m, p: (d, m, p.long()),
+    "pairs_1d": lambda d, m, p: (d, m, p[0]),
+    "pairs_three_columns": lambda d, m, p: (d, m, torch.zeros(2, 3, dtype=torch.int32)),
+    "pairs_not_contiguous": lambda d, m, p: (d, m, p.t().contiguous().t()),
+    "pairs_other_device": lambda d, m, p: (d, m, p.to("meta")),
+    "pair_index_too_large": lambda d, m, p: (d, m, torch.tensor([[0, 3]], dtype=torch.int32)),
+    "pair_index_negative": lambda d, m, p: (d, m, torch.tensor([[-1, 1]], dtype=torch.int32)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BAD_PAIRS_ARGS))
+def test_pairs_kernel_argument_checks_refuse(case):
+    good = _good_pairs_args()
+    assert mk.check_pairs_kernel_args(*good) == (3, 128, 2)
+    bad = BAD_PAIRS_ARGS[case](*good)
+    if case == "desc_not_contiguous":
+        assert not bad[0].is_contiguous()
+    with pytest.raises(ValueError):
+        mk.check_pairs_kernel_args(*bad)
+
+
+def _check_cuda_pairs_kernel(desc, mask, pairs, ratio=0.8):
+    """Kernel vs plain version: all raw outputs equal, or decisions agree on
+    > 0.999 and match_j is equal wherever both call a match valid (fp32
+    summation order may move a similarity by one quantization step)."""
+    dev = torch.device("cuda")
+    desc_bf, m = mk.prepare(torch.as_tensor(desc, device=dev), torch.as_tensor(mask, device=dev))
+    pi = torch.as_tensor(pairs, device=dev)
+    raw_k = mk.match_pairs_kernel(desc_bf, m, pi)
+    torch.cuda.synchronize()
+    raw_p = mk.match_pairs_plain(desc_bf, m, pi)
+    if all(torch.equal(a, b) for a, b in zip(raw_k, raw_p)):
+        return raw_k
+    vk = mk.decide(raw_k, m, pi, ratio)[1]
+    vp = mk.decide(raw_p, m, pi, ratio)[1]
+    assert (vk == vp).float().mean().item() > 0.999
+    both = vk & vp
+    assert torch.equal(raw_k[1][both], raw_p[1][both])
+    return raw_k
+
+
+# name -> (N, K, pairs): Kp = 128 (one tile, an odd number of column tiles),
+# 384 (three), 1024 (the largest the deep path uses); one pair, a pair count
+# that is a multiple of nothing, duplicate pairs and (i, i) pairs
+CUDA_PAIRS_CASES = {
+    "kp128_n3": (3, 128, [(0, 1), (0, 2), (1, 2)]),
+    "kp384_one_pair": (3, 300, [(2, 0)]),
+    "kp384_7_pairs": (5, 384, [(0, 1), (1, 2), (2, 3), (3, 4), (4, 0), (1, 3), (2, 2)]),
+    "kp1024_duplicates": (3, 1000, [(0, 1), (0, 1), (1, 0), (2, 2), (0, 1)]),
+    "kp512_13_pairs": (6, 512, [(i % 6, (i * 5 + 1) % 6) for i in range(13)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_PAIRS_CASES))
+def test_cuda_kernel_matches_plain_at_sizes(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    N, K, pairs = CUDA_PAIRS_CASES[case]
+    desc, mask, _ = _fixture(np.random.default_rng(7), N=N, K=K)
+    raw = _check_cuda_pairs_kernel(desc, mask, np.array(pairs, np.int32))
+    assert raw[0].shape == (len(pairs), -(-K // 128) * 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [128, 300, 1024])
+def test_cuda_kernel_bit_exact_at_sizes(K):
+    """Exact inputs (every product sum exact): all six raw outputs equal the
+    plain version's bit for bit at one, three and eight row tiles."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    desc, mask, pairs = _representable(3, N=4, K=K)
+    dev = torch.device("cuda")
+    desc_bf, m = mk.prepare(torch.as_tensor(desc, device=dev), torch.as_tensor(mask, device=dev))
+    pi = torch.as_tensor(pairs, device=dev)
+    raw_k = mk.match_pairs_kernel(desc_bf, m, pi)
+    torch.cuda.synchronize()
+    for a, b in zip(raw_k, mk.match_pairs_plain(desc_bf, m, pi)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_all_masked_frames():
+    """A frame without a live keypoint: every output of its pairs is dead,
+    no match; the other pairs are untouched by it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    desc, mask, _ = _fixture(np.random.default_rng(8), N=4, K=256)
+    mask[1] = False
+    pairs = np.array([(0, 1), (1, 2), (1, 1), (0, 2), (2, 3)], np.int32)
+    raw = _check_cuda_pairs_kernel(desc, mask, pairs)
+    dev = torch.device("cuda")
+    _, m = mk.prepare(torch.as_tensor(desc, device=dev), torch.as_tensor(mask, device=dev))
+    valid = mk.decide(raw, m, torch.as_tensor(pairs, device=dev), 0.8)[1]
+    assert not bool(valid[:3].any()) and bool(valid[3:].any())
+    assert bool((raw[0][:3] == mk.NEG).all()) and bool((raw[3][:3] == mk.NEG).all())
+    all_dead = np.zeros_like(mask)
+    raw = _check_cuda_pairs_kernel(desc, all_dead, pairs)
+    assert all(bool((raw[i] == mk.NEG).all()) for i in (0, 2, 3, 5))
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():

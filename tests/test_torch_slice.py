@@ -123,3 +123,32 @@ def test_rank_and_seed_on_the_reference_scene(jax_chain):
     out = convert.scene_to_numpy(seeded)
     for k, v in ref.items():
         np.testing.assert_allclose(out[k], v, atol=1e-5, err_msg=k)
+
+
+def test_scene_from_numpy_resolves_its_device_like_every_entry_point():
+    """Without a card the default (the card) raises, as every entry point
+    does; ``device="cpu"`` round-trips through ``scene_to_numpy``."""
+    from eacham_tpu_torch.sfm.scene import make_scene
+
+    rng = np.random.default_rng(0)
+    n, k, p = 3, 5, 2
+    scene = make_scene(
+        torch.as_tensor(rng.random((n, k, 2)).astype(np.float32)),
+        torch.as_tensor(rng.random((n, k)) > 0.3),
+        torch.tensor([[0, 1], [1, 2]], dtype=torch.int32), torch.tensor([True, False]),
+        torch.as_tensor(rng.integers(0, k, (p, k)).astype(np.int32)),
+        torch.as_tensor(rng.random((p, k)) > 0.5),
+        torch.as_tensor(rng.integers(0, k, (p, k)).astype(np.int32)),
+        torch.as_tensor(rng.random((p, k)) > 0.5),
+        torch.tensor([600.0, 600.0, 256.0, 192.0]))
+    d = convert.scene_to_numpy(scene)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.scene_from_numpy(d)
+    back = convert.scene_from_numpy(d, device="cpu")
+    assert all(t.device.type == "cpu" for t in back)
+    out = convert.scene_to_numpy(back)
+    assert set(out) == set(d)
+    for f, v in d.items():
+        assert out[f].dtype == v.dtype, f
+        np.testing.assert_array_equal(out[f], v, err_msg=f)
