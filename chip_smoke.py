@@ -7,11 +7,18 @@
 2. builds every CUDA kernel of the port from ``eacham_tpu_torch/csrc``
    (one nvcc per source, all started together);
 3. renders the 100-frame bench workload (512x384, seed 0) with the port's
-   own ``utils/synthetic.py`` and drives three paths through the port's
+   own ``utils/synthetic.py`` and drives four paths through the port's
    entry points, each with the kernel launch counts set to 0 just before
    and read just after:
-   - the classical path at full size: ``extract_features(K=512)`` ->
+   - the classical front half at full size: ``extract_features(K=512)`` ->
      ``initialize_sfm`` with the bench's options (``match_pairs`` kernel);
+   - the whole classical path at the bench's size and options, twice
+     (first and steady): ``extract_features`` -> ``run_sfm`` (match graph
+     with the ``match_pairs`` kernel, one launch a run -> init pair ->
+     registration sweep with PnP, triangulation and windowed local BA ->
+     pruning and global BA). Each run prints one JSON line (stage seconds,
+     registered frames, landmarks, ATE, init pair, global BA) and must pass
+     the bench's gate: at least 95 of 100 frames registered, ATE < 0.1;
    - the deep path at full size (scripts/bench_deep.py's workload): the
      shipped weights, ``extract_deep_batch(K=1024)`` ->
      ``build_match_tables_deep(pair_window=10, retrieval_k=3, threshold
@@ -27,7 +34,11 @@
    one PyTorch call computes the same function, that call; for the batched
    matcher also the first launch after the L2 was overwritten (``cold_ms``:
    its path launches it once, on descriptors written long before), for the
-   attention also the cross block and the ragged shape;
+   attention also the cross block and the ragged shape; the single-pair
+   matcher also on exact inputs at 1024 x 1024, 1000 x 777, with all and
+   with all but one keypoint dead (equal bits required, three runs each),
+   its kernel launches per call counted under the profiler, and its time
+   on the card alone beside the time of a call;
 5. checks each path: every kernel of the path launched, edges survive, and
    the init pair's relative pose against ground truth: within 1 deg
    rotation and 5 deg translation direction on the classical path (20 deg
@@ -161,6 +172,44 @@ def cold_ms(fn, dev) -> float:
     return start.elapsed_time(end)
 
 
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn()`` with the host out of the way:
+    ``reps`` calls are enqueued while the card is still busy with a long
+    matrix product, so the card runs them back to back."""
+    import torch
+
+    fn()
+    big = torch.randn((8192, 8192), device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    for _ in range(4):
+        big @ big
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_launches(fn) -> int:
+    """Kernels that one ``fn()`` runs on the card, counted under
+    ``torch.profiler`` (copies and memsets are not kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    require(names, "the profiler recorded no device activity")
+    return sum(1 for n in names if not n.lower().startswith(("memcpy", "memset")))
+
+
 def repeated(fn, what):
     """``fn()`` REPEATS times, synchronized; every run must return the same
     bits as the first (a race shows as a result that changes). Returns the
@@ -231,6 +280,55 @@ def check_slice(xy, desc, mask, scene, stats, launches, poses):
     require(stats["initialized"] and stats["n_good"] > 100, stats)
     print(f"slice: keypoints/frame {int(n_kps.min())}-{int(n_kps.max())}", flush=True)
     check_seeded_map("slice", scene, stats, poses)
+
+
+def run_full(images, intr, poses, dev, card, run):
+    """images -> features -> finished reconstruction through
+    ``extract_features`` and ``run_sfm`` at the bench's size and options,
+    timed per stage; prints the run's JSON line and holds it to the
+    bench's gate."""
+    import torch
+    from eacham_tpu_torch.features.frontend import extract_features
+    from eacham_tpu_torch.ops import reset_launch_counts, launch_counts
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions, run_sfm
+    from eacham_tpu_torch.utils.evaluate import trajectory_ate
+
+    imgs = torch.as_tensor(images, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xy, desc, _, mask = extract_features(imgs, max_keypoints=MAX_KPS, device=dev)
+    torch.cuda.synchronize()
+    t_extract = time.perf_counter() - t0
+    scene, stats = run_sfm(xy, desc, mask, image_size=(WIDTH, HEIGHT), intr=intr,
+                           options=SfmOptions(**BENCH_OPTIONS), device=dev)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = launch_counts()
+    require(stats["initialized"], f"run_sfm found no init pair: {stats}")
+    valid = scene.pose_valid.cpu().numpy()
+    ate = trajectory_ate(scene.pose.cpu().numpy()[valid], poses[valid])   # bench.py's measure
+    ba = stats["global_ba"]
+    print(json.dumps({
+        "phase": "run_sfm", "run": run, "card": card,
+        "seconds": dict(extract=t_extract, **stats["seconds"], total=total),
+        "frames_per_s": N_FRAMES / total,
+        "registered": stats["registered"], "excluded": stats["excluded"],
+        "landmarks": stats["landmarks"], "ate": ate,
+        "init_pair": list(stats["init_pair"]), "used_homography": stats["used_homography"],
+        "n_good": stats["n_good"], "edges": stats["edges"], "global_ba": ba,
+        "match_pairs_launches": launches["match_pairs"]}), flush=True)
+    init_pose_line(f"run_sfm run {run}", stats, poses)
+    require(launches["match_pairs"] == 1,
+            f"run_sfm launched the matcher {launches['match_pairs']} times, not once")
+    require(scene.pose.isfinite().all() and scene.points[scene.lm_valid].isfinite().all(),
+            "run_sfm left non-finite poses or landmarks")
+    require(ba is not None and ba["final_cost"] < ba["initial_cost"],
+            f"the global BA did not run or did not reduce its cost: {ba}")
+    require(stats["registered"] >= N_FRAMES - 5,
+            f"bench gate: {stats['registered']} of {N_FRAMES} frames registered")
+    require(ate < 0.1, f"bench gate: ATE {ate}")
+    return stats
 
 
 def check_match_kernel(desc, mask, launches, card):
@@ -543,9 +641,46 @@ def check_match_pair_kernel(desc, mask, launches, card):
         require(all(equal) or (agree >= 0.999 and same_j and err <= 2.0 / 16384),
                 f"match_pair kernel disagrees with its plain version: {equal}, {agree}")
 
+    # exact inputs (entries are multiples of 1/16, so every product sum is
+    # exact in any order): the raw outputs must be equal bit for bit, in
+    # every one of REPEATS runs, whatever block merges last
+    g = torch.Generator(device=desc.device).manual_seed(5)
+    for K1, K2, live in ((1024, 1024, "random"), (1000, 777, "random"),
+                         (1024, 1024, "none"), (1000, 777, "none"),
+                         (1024, 1024, "one"), (1000, 777, "one")):
+        e1 = torch.randint(-1, 2, (K1, 256), generator=g, device=desc.device) / 16.0
+        e2 = torch.randint(-1, 2, (K2, 256), generator=g, device=desc.device) / 16.0
+        if live == "random":
+            l1 = torch.rand(K1, generator=g, device=desc.device) > 0.2
+            l2 = torch.rand(K2, generator=g, device=desc.device) > 0.2
+        else:
+            l1 = torch.zeros(K1, dtype=torch.bool, device=desc.device)
+            l2 = torch.zeros(K2, dtype=torch.bool, device=desc.device)
+            if live == "one":
+                l1[K1 // 2], l2[K2 - 1] = True, True
+        raw_k = repeated(lambda: mk.match_pair_kernel(e1, e2, l1, l2),
+                         f"match_pair kernel, exact {K1} x {K2}, live {live}")
+        raw_p = mk.match_pair_plain(e1, e2, l1, l2)
+        equal = [bool(torch.equal(a, b)) for a, b in zip(raw_k, raw_p)]
+        require(all(equal), f"match_pair kernel differs from its plain version on exact "
+                            f"inputs ({K1} x {K2}, live {live}): {equal}")
+        if live == "none":
+            require(bool((raw_k[0] == mk.NEG).all()) and bool((raw_k[3] == mk.NEG).all()),
+                    "all-dead case produced live outputs")
+    print(f"match_pair kernel vs plain on exact inputs (1024 x 1024 and 1000 x 777; random, "
+          f"no and one live keypoint): all raw outputs bit-equal in {REPEATS} runs each",
+          flush=True)
+
     d1, d2 = desc[0].contiguous(), desc[1].contiguous()
     m1, m2 = mask[0].contiguous(), mask[1].contiguous()
+    launches_per_call = kernel_launches(lambda: mk.match_pair_kernel(d1, d2, m1, m2))
+    require(launches_per_call == 1,
+            f"one call of match_pair_kernel launched {launches_per_call} kernels")
+    before = mk.match_pair_kernel.launches
     ms = cuda_ms(lambda: mk.match_pair_kernel(d1, d2, m1, m2), reps=20)
+    require(mk.match_pair_kernel.launches == before + 21,
+            "match_pair_kernel does not count one launch per call")
+    device_ms = queued_ms(lambda: mk.match_pair_kernel(d1, d2, m1, m2), reps=50)
     plain_ms = cuda_ms(lambda: mk.match_pair_plain(d1, d2, m1, m2), reps=5)
     K1, K2 = d1.shape[0], d2.shape[0]
     flops = 2.0 * K1 * K2 * d1.shape[1]
@@ -553,15 +688,20 @@ def check_match_pair_kernel(desc, mask, launches, card):
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     bound_ms = max(t_ops, t_bytes) * 1e3
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"match_pair kernel on {card}, K1=K2={K1}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    print(f"match_pair kernel on {card}, K1=K2={K1}: {ms:.4f} ms a call (mean of 20, the "
+          f"wrapper's host work included), {device_ms:.4f} ms on the card alone (50 calls "
+          f"queued behind a long product), {launches_per_call} kernel launch per call, "
+          f"plain {plain_ms:.4f} ms, "
           f"bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP over the fp32 peak "
           f"{PEAK_FP32_FLOPS:.3g}/s, {nbytes:.4g} B over {PEAK_BYTES:.3g} B/s)", flush=True)
+    require(device_ms >= bound_ms, f"match_pair {device_ms} ms is under its bound {bound_ms}")
     return {"name": "match_pair", "route": "cuda",
             "source": "eacham_tpu_torch/csrc/match_pair.cu",
             "replaces": "eacham_tpu/ops/match_kernel.py:31",
             "launches": launches["match_pair"], "max_abs_err": max_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "launches_per_call": launches_per_call,
+            "device_ms": device_ms}
 
 
 def dump_scene(path, scene, poses, intr):
@@ -621,6 +761,9 @@ def main() -> int:
     records = [check_match_kernel(desc, mask, launches, card)]
     check_slice(xy, desc, mask, scene, stats, launches, poses)
     del xy, desc, mask, scene
+
+    for run in range(2):
+        run_full(images, intr, poses, dev, card, run)
 
     models, deep, deep_launches = run_deep(images, intr, dev, card)
     if args.dump_deep:

@@ -4,6 +4,8 @@ arrays.
 ``scene_from_numpy`` takes a reference ``Scene`` given as a dict of numpy
 arrays (``{k: np.asarray(v) for k, v in scene._asdict().items()}``) and
 builds the port's ``Scene``; ``scene_to_numpy`` is the reverse.
+``ba_problem_from_numpy`` / ``ba_problem_to_numpy`` do the same for a
+``BAProblem`` (index arrays become int64, absent anchors stay None).
 
 ``superpoint_from_numpy`` and ``lightglue_from_numpy`` build the deep
 frontend's modules from a flat dict of numpy arrays keyed as the
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from eacham_tpu_torch.ba.core import BAProblem
 from eacham_tpu_torch.device import resolve_device
 from eacham_tpu_torch.features.deep.lightglue import AttentionBlock, LightGlueMatcher
 from eacham_tpu_torch.features.deep.superpoint import SuperPointNet
@@ -39,6 +42,29 @@ def scene_from_numpy(d, device: str | torch.device | None = None) -> Scene:
 def scene_to_numpy(scene: Scene) -> dict:
     """Scene -> dict of numpy arrays keyed by field name."""
     return {f: getattr(scene, f).detach().cpu().numpy() for f in Scene._fields}
+
+
+def ba_problem_from_numpy(d, device: str | torch.device | None = None) -> BAProblem:
+    """dict (or NamedTuple) of array-likes with the ``BAProblem`` fields ->
+    BAProblem on ``device`` (resolved as in ``scene_from_numpy``)."""
+    if hasattr(d, "_asdict"):
+        d = d._asdict()
+    dev = resolve_device(device)
+    out = {}
+    for f in BAProblem._fields:
+        v = d.get(f)
+        if v is None:
+            out[f] = None
+            continue
+        t = torch.as_tensor(np.array(v), device=dev)
+        out[f] = t.long() if f in ("obs_cam", "obs_pt") else t
+    return BAProblem(**out)
+
+
+def ba_problem_to_numpy(p: BAProblem) -> dict:
+    """BAProblem -> dict of numpy arrays keyed by field name (None kept)."""
+    return {f: None if getattr(p, f) is None else getattr(p, f).detach().cpu().numpy()
+            for f in BAProblem._fields}
 
 
 def _key(*names: str) -> str:

@@ -1,4 +1,5 @@
-"""Batched DLT triangulation (port of eacham_tpu/geometry/triangulation.py).
+"""Batched DLT triangulation and multi-view consensus (port of
+eacham_tpu/geometry/triangulation.py).
 
 The DLT system is solved in inhomogeneous form through 3x3 normal
 equations with a closed-form adjugate inverse: no eigen/SVD call at all.
@@ -11,7 +12,9 @@ import math
 
 import torch
 
-from eacham_tpu_torch.geometry.se3 import camera_center
+from eacham_tpu_torch.geometry.camera import pixel_to_normalized, reprojection_error
+from eacham_tpu_torch.geometry.ransac import take_along
+from eacham_tpu_torch.geometry.se3 import camera_center, transform_points
 
 _EPS = 1e-12
 
@@ -84,3 +87,56 @@ def is_positive_depth(T: torch.Tensor, point: torch.Tensor) -> torch.Tensor:
     """Cheirality test: point in front of the camera."""
     z = torch.einsum("...j,...j->...", T[..., 2, :3], point) + T[..., 2, 3]
     return z > 0.0
+
+
+def triangulate_consensus(
+    transforms: torch.Tensor,   # [..., V, 4, 4] world->cam per observer slot
+    uv: torch.Tensor,           # [..., V, 2] pixel observations
+    mask: torch.Tensor,         # [..., V] bool — which slots are real observers
+    intr: torch.Tensor,         # [4] shared intrinsics
+    max_repr_error: float,
+    min_tri_angle: float,
+):
+    """Multi-view triangulation with exhaustive-pair consensus, batched over
+    the leading axes (one track per entry).
+
+    Every observer pair proposes a DLT point; a proposal is admissible if
+    its pair angle >= ``min_tri_angle``; proposals are scored by the number
+    of observers with reprojection error < ``max_repr_error`` and positive
+    depth; the best proposal wins, the first on ties.
+
+    Returns ``(point3d [..., 3], inliers [..., V] bool, ok [...] bool)``:
+    with 2 observers ``ok`` is the angle gate, with more the best inlier
+    count > 2; both also need world-z > 0. Callers additionally require all
+    observers to be inliers.
+    """
+    V = transforms.shape[-3]
+    pairs = torch.triu_indices(V, V, offset=1, device=transforms.device)
+    ii, jj = pairs[0], pairs[1]                          # row-major, as np.triu_indices
+
+    xy = pixel_to_normalized(uv, intr)
+    Ti = transforms[..., ii, :, :]
+    Tj = transforms[..., jj, :, :]
+    pts = triangulate_dlt(Ti, Tj, xy[..., ii, :], xy[..., jj, :])      # [..., P, 3]
+    ang = triangulation_angle(Ti, Tj, pts)                              # [..., P]
+    pair_valid = mask[..., ii] & mask[..., jj] & (ang >= min_tri_angle)
+
+    # score every proposal against every observer
+    pc = transform_points(transforms[..., None, :, :, :], pts[..., :, None, :])  # [..., P, V, 3]
+    err = reprojection_error(uv[..., None, :, :], pc, intr)                      # [..., P, V]
+    inl = (err < max_repr_error) & (pc[..., 2] > 0.0) & mask[..., None, :]
+    counts = torch.where(pair_valid, inl.sum(-1), -1)
+
+    # first maximum, as jnp.argmax: the largest of count * P + (P - 1 - slot)
+    P = ii.shape[0]
+    slot = torch.arange(P, device=counts.device)
+    best = P - 1 - (counts * P + (P - 1 - slot)).amax(-1) % P
+    best_point = take_along(pts, best)
+    best_inl = take_along(inl, best)
+    best_count = take_along(counts, best)
+    n_valid = mask.sum(-1)
+
+    ok_two = take_along(pair_valid, best)     # two observers: only the angle gate
+    ok_many = best_count > 2
+    ok = torch.where(n_valid <= 2, ok_two, ok_many) & (best_point[..., 2] > 0.0) & (n_valid >= 2)
+    return best_point, best_inl, ok

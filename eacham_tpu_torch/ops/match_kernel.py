@@ -16,6 +16,7 @@ raises — there is no fallback from one to the other.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -264,12 +265,40 @@ def match_pair_plain(d1: torch.Tensor, d2: torch.Tensor,
             _unpack(cmax, rbits), carg, _unpack(csec, rbits))
 
 
-def match_pair_kernel(d1: torch.Tensor, d2: torch.Tensor,
-                      mask1: torch.Tensor, mask2: torch.Tensor):
-    """Launch csrc/match_pair.cu on CUDA tensors; same contract as
-    ``match_pair_plain``. Counts its launches in ``.launches``."""
+# (device, stream) -> the single-pair kernel's arrival counters followed by its
+# scratch. The counters must be zero before a launch and every launch leaves
+# them zero, so the buffer is made once with zeros and kept; launches on one
+# stream run in order and may share it, two streams get one each.
+_PAIR_WORKSPACE: dict = {}
+
+
+def _match_pair_workspace(dev: torch.device, stream: int, n_ints: int) -> torch.Tensor:
+    work = _PAIR_WORKSPACE.get((dev, stream))
+    if work is None or work.numel() < n_ints:
+        work = torch.zeros(n_ints, dtype=torch.int32, device=dev)
+        _PAIR_WORKSPACE[(dev, stream)] = work
+    return work
+
+
+def _match_pair_lib():
+    """The loaded csrc/match_pair.cu with its C signatures declared."""
     from eacham_tpu_torch.ops.build import load
 
+    lib = load("match_pair")
+    if lib.match_pair_launch.argtypes is None:
+        lib.match_pair_counter_ints.restype = ctypes.c_int
+        lib.match_pair_scratch_ints.argtypes = [ctypes.c_int] * 2
+        lib.match_pair_scratch_ints.restype = ctypes.c_longlong
+        lib.match_pair_launch.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9)
+        lib.match_pair_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def match_pair_kernel(d1: torch.Tensor, d2: torch.Tensor,
+                      mask1: torch.Tensor, mask2: torch.Tensor):
+    """Launch csrc/match_pair.cu on CUDA tensors, one kernel launch a call;
+    same contract as ``match_pair_plain``. Counts its calls in ``.launches``."""
     if not d1.is_cuda:
         raise ValueError("match_pair_kernel takes CUDA tensors")
     dev = d1.device
@@ -285,20 +314,25 @@ def match_pair_kernel(d1: torch.Tensor, d2: torch.Tensor,
                 or not m.is_contiguous():
             raise ValueError(f"{name} must be a contiguous [{K}] bool tensor on {dev}")
 
-    lib = load("match_pair")
-    lib.match_pair_scratch_ints.argtypes = [ctypes.c_int] * 2
-    lib.match_pair_scratch_ints.restype = ctypes.c_longlong
-    lib.match_pair_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8)
-    lib.match_pair_error_string.restype = ctypes.c_char_p
-    scratch = torch.empty(lib.match_pair_scratch_ints(K1, K2), dtype=torch.int32, device=dev)
-    outs = [torch.empty(K, dtype=dt, device=dev)
-            for K in (K1, K2) for dt in (torch.float32, torch.int32, torch.float32)]
-    with torch.cuda.device(dev):
+    lib = _match_pair_lib()
+    n_counters = lib.match_pair_counter_ints()
+    if 2 * max(-(-K1 // 64), -(-K2 // 64)) > n_counters:
+        raise ValueError(f"K1={K1}, K2={K2}: more tiles than the kernel has arrival counters")
+    # the wrapper's host work is a large share of a call at this size (the
+    # kernel runs for some 25 us), so it makes one allocation and switches
+    # the current device only when it has to
+    with torch.cuda.device(dev) if torch.cuda.current_device() != dev.index \
+            else contextlib.nullcontext():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        work = _match_pair_workspace(
+            dev, stream, n_counters + lib.match_pair_scratch_ints(K1, K2)).data_ptr()
+        out = torch.empty(3 * (K1 + K2), dtype=torch.int32, device=dev)
+        outs = [o.view(torch.float32) if i % 3 != 1 else o
+                for i, o in enumerate(out.split((K1,) * 3 + (K2,) * 3))]
         err = lib.match_pair_launch(
             d1.data_ptr(), d2.data_ptr(), mask1.data_ptr(), mask2.data_ptr(),
-            K1, K2, _bits(K2), scratch.data_ptr(), *(o.data_ptr() for o in outs),
-            torch.cuda.current_stream(dev).cuda_stream)
+            K1, K2, _bits(K2), work, work + 4 * n_counters,
+            *(o.data_ptr() for o in outs), stream)
     if err != 0:
         raise RuntimeError("match_pair kernel launch failed: "
                            + lib.match_pair_error_string(err).decode())

@@ -189,3 +189,34 @@ def build_match_tables(
         valid_ij = valid_ij & pair_ok[:, None]
     match_ji, valid_ji = invert_matches(match_ij, valid_ij)
     return pair_idx, pair_ok, match_ij, valid_ij, match_ji, valid_ji
+
+
+def observers_of_frame(
+    frame,                     # int or [] int tensor — the "current" frame c
+    pair_rows: torch.Tensor,   # [D] — frame_pair_table[c], -1 padded
+    pair_idx: torch.Tensor,    # [P, 2]
+    pair_ok: torch.Tensor,     # [P]
+    match_ij: torch.Tensor,    # [P, K]
+    valid_ij: torch.Tensor,
+    match_ji: torch.Tensor,
+    valid_ji: torch.Tensor,
+):
+    """For every keypoint k of frame c: the matched keypoint in each of c's
+    candidate neighbours, compacted to the frame's degree D.
+
+    Returns ``(obs_frame [D] int64, obs_kp [D, K] int64, obs_on [D, K])``
+    where obs_kp[d, k] is the keypoint of frame obs_frame[d] matched to
+    keypoint k of frame c. ``pair_rows`` lists neighbours in ascending frame
+    order, so first-True selections over axis 0 prefer earlier frames.
+    """
+    pid = torch.clamp(pair_rows.long(), min=0)
+    has_edge = (pair_rows >= 0) & pair_ok[pid]
+    # slot d comes from the forward table when c is the pair's "i" slot,
+    # from the inverse table otherwise
+    pi = pair_idx[pid].long()
+    c_is_i = pi[:, 0] == frame
+    obs_frame = torch.where(c_is_i, pi[:, 1], pi[:, 0])
+    obs_frame = torch.where(has_edge, obs_frame, frame)
+    obs_kp = torch.where(c_is_i[:, None], match_ij[pid], match_ji[pid]).long()
+    obs_on = torch.where(c_is_i[:, None], valid_ij[pid], valid_ji[pid]) & has_edge[:, None]
+    return obs_frame, obs_kp, obs_on

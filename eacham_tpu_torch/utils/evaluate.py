@@ -68,3 +68,12 @@ def ate_rmse(est_centers: np.ndarray, gt_centers: np.ndarray) -> float:
     aligned = (s * (R @ est_centers.T)).T + t
     err = aligned - gt_centers
     return float(np.sqrt((err * err).sum(-1).mean()))
+
+
+def trajectory_ate(est_poses: np.ndarray, gt_poses: np.ndarray) -> float:
+    """ATE RMSE between two sets of world->cam poses [M, 4, 4]: the RMSE of
+    their camera centres after similarity alignment."""
+    est, gt = np.asarray(est_poses, np.float64), np.asarray(gt_poses, np.float64)
+    c_est = -np.einsum("nij,ni->nj", est[:, :3, :3], est[:, :3, 3])
+    c_gt = -np.einsum("nij,ni->nj", gt[:, :3, :3], gt[:, :3, 3])
+    return float(ate_rmse(c_est, c_gt))

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of eacham_tpu_torch, and not
-chip_smoke.py, imports JAX or the JAX package, and its entry points never
+"""The port stands alone: no module of eacham_tpu_torch, and neither
+chip_smoke.py nor bench_gpu.py, imports JAX or the JAX package, and its entry points never
 carry on silently on the CPU when a card was asked for."""
 
 import ast
@@ -32,7 +32,10 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
     assert {"eacham_tpu_torch.ops.attention", "eacham_tpu_torch.convert",
             "eacham_tpu_torch.features.deep.superpoint",
             "eacham_tpu_torch.features.deep.lightglue",
-            "eacham_tpu_torch.features.deep.frontend"} <= set(mods)
+            "eacham_tpu_torch.features.deep.frontend",
+            "eacham_tpu_torch.geometry.pnp", "eacham_tpu_torch.ba.core",
+            "eacham_tpu_torch.sfm.triangulate", "eacham_tpu_torch.sfm.filtering",
+            "eacham_tpu_torch.sfm.device_loop", "eacham_tpu_torch.sfm.pipeline"} <= set(mods)
     code = "\n".join([
         "import sys",
         f"sys.path.insert(0, {str(ROOT)!r})",
@@ -41,6 +44,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         f"for m in {mods!r}:",
         "    importlib.import_module(m)",
         "import chip_smoke",
+        "import bench_gpu",
         "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -49,9 +53,12 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
 
 
 def _sources():
-    """The port's Python sources (not its build directory) and chip_smoke.py."""
+    """The port's Python sources (not its build directory), chip_smoke.py,
+    bench_gpu.py and the port's scripts."""
     files = [p for p in PKG.rglob("*.py") if "_build" not in p.parts]
-    return sorted(str(p.relative_to(ROOT)) for p in [*files, ROOT / "chip_smoke.py"])
+    scripts = [p for p in (ROOT / "scripts").glob("*_torch.py")]
+    return sorted(str(p.relative_to(ROOT))
+                  for p in [*files, ROOT / "chip_smoke.py", ROOT / "bench_gpu.py", *scripts])
 
 
 @pytest.mark.parametrize("path", _sources())
@@ -78,7 +85,7 @@ def test_entry_points_refuse_a_missing_card():
     from eacham_tpu_torch.features.deep.lightglue import LightGlueMatcher
     from eacham_tpu_torch.features.deep.superpoint import SuperPointNet
     from eacham_tpu_torch.features.frontend import extract_features
-    from eacham_tpu_torch.sfm.pipeline import initialize_sfm
+    from eacham_tpu_torch.sfm.pipeline import initialize_sfm, run_sfm
 
     images = np.zeros((1, 64, 64), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -97,3 +104,21 @@ def test_entry_points_refuse_a_missing_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize_sfm(np.zeros((2, 8, 2), np.float32), np.zeros((2, 8, 256), np.float32),
                        np.ones((2, 8), bool), (64, 64))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_sfm(np.zeros((2, 8, 2), np.float32), np.zeros((2, 8, 256), np.float32),
+                np.ones((2, 8), bool), (64, 64))
+    from eacham_tpu_torch import convert
+    from tests.test_torch_ba import make_problem
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.ba_problem_from_numpy(make_problem()[0])
+
+
+def test_bench_gpu_fails_without_a_card():
+    """The benchmark prints no result and exits non-zero where there is no
+    card: it never measures the CPU under a device metric's name."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(ROOT / "bench_gpu.py")], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode != 0 and "sfm_frames_per_s" not in out.stdout
+    assert "no CUDA device" in out.stderr

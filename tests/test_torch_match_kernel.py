@@ -365,6 +365,49 @@ def test_single_pair_agrees_with_batched_plain_packing():
         assert torch.equal(a[0], b)
 
 
+@pytest.mark.parametrize("K1,K2", [(300, 170), (130, 64), (64, 200)])
+def test_single_pair_half_tile_merge_is_exact(K1, K2):
+    """The arithmetic plan of the one-launch kernel, replayed in torch: the
+    column summaries of 64-row blocks, packed with the row index within
+    their 128-row tile, merged pairwise (exact: packed values are unique
+    within a tile) and then across tiles in order with the reference's
+    rule, equal the plain version's column outputs, ties included (K1 =
+    130 leaves a packing tile with one half only)."""
+    r = np.random.default_rng(6)
+    d1 = torch.as_tensor((r.integers(-1, 2, size=(K1, 256)) / 16.0).astype(np.float32))
+    d2 = torch.as_tensor((r.integers(-1, 2, size=(K2, 256)) / 16.0).astype(np.float32))
+    m1, m2 = torch.as_tensor(r.random(K1) > 0.2), torch.as_tensor(r.random(K2) > 0.2)
+    want = mk.match_pair_plain(d1, d2, m1, m2)
+
+    rbits = 7
+    q = torch.round(d1 @ d2.t() * mk.QSCALE).to(torch.int32)
+    rows = (torch.arange(K1, dtype=torch.int32) % mk.ROW_TILE)[:, None]
+    qr = torch.where(m1[:, None] & m2[None, :], q * (1 << rbits) | rows, mk.IMIN)
+    n_blocks = -(-K1 // 64)
+    qr = torch.nn.functional.pad(qr, (0, 0, 0, n_blocks * 64 - K1), value=mk.IMIN)
+    blocks = qr.view(n_blocks, 64, K2)
+    top = blocks.amax(1)                                          # [blocks, K2]
+    sec = torch.where(blocks == top[:, None], mk.IMIN, blocks).amax(1)
+    cmax = csec = carg = None
+    for t in range(-(-n_blocks // 2)):
+        ttop, tsec = top[2 * t], sec[2 * t]
+        if 2 * t + 1 < n_blocks:                                  # merge the tile's halves
+            o_top, o_sec = top[2 * t + 1], sec[2 * t + 1]
+            tsec = torch.maximum(torch.maximum(tsec, o_sec), torch.minimum(ttop, o_top))
+            ttop = torch.maximum(ttop, o_top)
+        if t == 0:
+            cmax, csec, carg = ttop, tsec, ttop & (mk.ROW_TILE - 1)
+            continue
+        prev = cmax
+        csec = torch.maximum(torch.maximum(csec, tsec), torch.minimum(prev, ttop))
+        take = ttop > prev
+        cmax = torch.where(take, ttop, prev)
+        carg = torch.where(take, (ttop & (mk.ROW_TILE - 1)) + t * mk.ROW_TILE, carg)
+    assert torch.equal(mk._unpack(cmax, rbits), want[3])
+    assert torch.equal(carg, want[4])
+    assert torch.equal(mk._unpack(csec, rbits), want[5])
+
+
 def test_single_pair_wrapper_refuses_non_cuda_tensors():
     d1, d2, m1, m2 = (torch.as_tensor(x) for x in _pair_fixture(0))
     with pytest.raises(ValueError):
@@ -372,25 +415,65 @@ def test_single_pair_wrapper_refuses_non_cuda_tensors():
     assert mk.match_pair_kernel.launches == 0
 
 
+def _exact_pair(K1, K2, dev, masks="random", seed=5):
+    """Small-integer entries (multiples of 1/16): every product sum is exact
+    in fp32 in any order, so kernel and plain version must agree bit for
+    bit, ties included. ``masks``: "random", "dead" (nothing live) or "one"
+    (one live row and one live column)."""
+    r = np.random.default_rng(seed)
+    d1 = torch.as_tensor((r.integers(-1, 2, size=(K1, 256)) / 16.0).astype(np.float32), device=dev)
+    d2 = torch.as_tensor((r.integers(-1, 2, size=(K2, 256)) / 16.0).astype(np.float32), device=dev)
+    if masks == "random":
+        m1, m2 = r.random(K1) > 0.2, r.random(K2) > 0.2
+    else:
+        m1, m2 = np.zeros(K1, bool), np.zeros(K2, bool)
+        if masks == "one":
+            m1[K1 // 2], m2[K2 - 1] = True, True
+    return d1, d2, torch.as_tensor(m1, device=dev), torch.as_tensor(m2, device=dev)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("K1,K2", [(200, 170), (1024, 1024), (1, 3)])
-def test_cuda_single_pair_kernel_matches_plain(K1, K2):
+@pytest.mark.parametrize("K1,K2,masks", [
+    (200, 170, "random"), (1024, 1024, "random"), (1000, 777, "random"), (1, 3, "random"),
+    (130, 64, "random"), (1024, 1024, "dead"), (1000, 777, "dead"), (1024, 1024, "one"),
+    (1000, 777, "one")])
+def test_cuda_single_pair_kernel_matches_plain(K1, K2, masks):
+    """Bit-equal raw outputs in three runs (a race between the blocks that
+    write partial summaries and the one that merges them would show as a
+    run that differs), one count per call, at sizes that leave ragged row
+    blocks, half-filled packing tiles (130 rows: three 64-row blocks) and
+    unequal tile counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    d1, d2, m1, m2 = _exact_pair(K1, K2, torch.device("cuda"), masks)
+    want = mk.match_pair_plain(d1, d2, m1, m2)
+    for _ in range(3):
+        before = mk.match_pair_kernel.launches
+        raw_k = mk.match_pair_kernel(d1, d2, m1, m2)
+        torch.cuda.synchronize()
+        assert mk.match_pair_kernel.launches == before + 1
+        for a, b in zip(raw_k, want):
+            assert torch.equal(a, b)
+    if masks == "dead":
+        assert bool((raw_k[0] == mk.NEG).all()) and bool((raw_k[3] == mk.NEG).all())
+
+
+@pytest.mark.cuda
+def test_cuda_single_pair_kernel_alternating_shapes_share_the_workspace():
+    """Launches of different shapes on one stream reuse one workspace: the
+    arrival counters must come back to zero after each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    r = np.random.default_rng(5)
-    # bf16-exact small-integer entries: every product sum is exact, so the
-    # raw outputs must be equal bit for bit, ties included
-    d1 = torch.as_tensor((r.integers(-1, 2, size=(K1, 256)) / 16.0).astype(np.float32), device=dev)
-    d2 = torch.as_tensor((r.integers(-1, 2, size=(K2, 256)) / 16.0).astype(np.float32), device=dev)
-    m1 = torch.as_tensor(r.random(K1) > 0.2, device=dev)
-    m2 = torch.as_tensor(r.random(K2) > 0.2, device=dev)
-    before = mk.match_pair_kernel.launches
-    raw_k = mk.match_pair_kernel(d1, d2, m1, m2)
+    cases = [_exact_pair(K1, K2, dev, seed=s)
+             for s, (K1, K2) in enumerate([(1024, 1024), (70, 900), (1000, 777), (1024, 1024)])]
+    outs = [mk.match_pair_kernel(*c) for c in cases for _ in range(2)]
     torch.cuda.synchronize()
-    assert mk.match_pair_kernel.launches == before + 1
-    for a, b in zip(raw_k, mk.match_pair_plain(d1, d2, m1, m2)):
-        assert torch.equal(a, b)
+    for k, c in enumerate(cases):
+        want = mk.match_pair_plain(*c)
+        for raw in outs[2 * k:2 * k + 2]:
+            for a, b in zip(raw, want):
+                assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
