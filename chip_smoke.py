@@ -43,9 +43,35 @@
    the init pair's relative pose against ground truth: within 1 deg
    rotation and 5 deg translation direction on the classical path (20 deg
    where the homography path was taken, see MAX_TRANS_DEG_H), 2 and 30 deg
-   on the deep path (see DEEP_MAX_ROT_DEG).
+   on the deep path (see DEEP_MAX_ROT_DEG);
+6. drives the product's own paths, each printing one JSON line with a
+   ``"phase"`` key, its stage seconds and the card, and each held to the
+   bench's gate (at least 95 of 100 frames, ATE < 0.1) unless it says
+   otherwise:
+   - ``resume``: the second ``run_sfm`` run's scene with frames 50-99 taken
+     out -> ``save_scene`` / ``load_scene`` -> ``resume_sfm(finalize=False)``
+     with a checkpoint every segment of 16 (at least three written) -> the
+     last checkpoint loaded and resumed with ``finalize=True``, which must
+     register the frames that the sweep registered;
+   - ``cli``: the 100 frames written as 8-bit PGM under
+     ``chiprun_out/cli/images`` with a config in the reference's schema,
+     then ``eacham_tpu_torch.cli.main`` in this process: transform.json,
+     transforms_nerf.json (= inv(pose) @ diag(1, -1, -1, 1)), cloud.ply and
+     trajectory.ply (their headers' counts), one ``match_pairs`` launch, the
+     decoder that read the frames and the CLI's stage timer;
+   - ``stream``: ``StreamingReconstructor(max_frames=100, K=512, window=6,
+     retrieval_k=2, finalize_every=5)`` over windows of 10, checkpointed and
+     restored into a new object after window 5, ``finalize()`` at the end:
+     one ``match_pairs`` launch and no unarrived frame registered in every
+     window; the matcher is then held against its plain version on window
+     5's own inputs (the capacity table with the unarrived rows masked and
+     that window's pairs, not bucketed), three runs with equal bits;
+   - ``cli_deep``: the CLI with ``--frontend deep`` on the first 24 frames
+     (all 276 pairs), held to DEEP_CLI_MIN_REGISTERED and DEEP_CLI_MAX_ATE,
+     with every attention launch counted.
 
-``--dump`` / ``--dump-deep`` also save a path's match tables and
+The phases write what they make under ``chiprun_out/`` (images, configs,
+outputs, checkpoints). ``--dump`` / ``--dump-deep`` also save a path's match tables and
 ground-truth poses, the input of ``scripts/init_pair_spread_{jax,torch}.py``.
 
 Prints one JSON line of per-kernel numbers, then the contract line
@@ -55,6 +81,7 @@ a card, or without the port beside this script, it exits non-zero at once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -101,6 +128,12 @@ DEEP_VERIFY_SEED = 7
 # --min-initial-inliers 60). Neither keeps every seed within the classical
 # limits above, so the deep path is held to the reference's spread.
 DEEP_MAX_ROT_DEG, DEEP_MAX_TRANS_DEG = 2.0, 30.0
+
+# the streaming phase: the bench's frames arriving in windows of 10, through
+# StreamingReconstructor(max_frames=100, K=512) with the bench's options
+# (scripts/stream_reference_jax.py runs the same stream on the JAX package)
+STREAM = dict(window=6, retrieval_k=2, finalize_every=5)
+STREAM_CHUNK, STREAM_CHECKPOINT_AFTER = 10, 5
 
 # H100 SXM dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -208,6 +241,37 @@ def kernel_launches(fn) -> int:
     names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
     require(names, "the profiler recorded no device activity")
     return sum(1 for n in names if not n.lower().startswith(("memcpy", "memset")))
+
+
+def profiled_device_ms(fn, name: str, reps: int = 20) -> float:
+    """Mean device milliseconds per call of the kernels named ``name`` that
+    ``fn()`` launches, from ``torch.profiler``'s device timeline: the card's
+    time alone, without the host work of the call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and name in e.name]
+    require(len(us) == reps, f"the profiler saw {len(us)} {name} kernels in {reps} calls")
+    return sum(us) / reps / 1e3
+
+
+def tidy(out: Path) -> None:
+    """Remove a passed phase's bulky inputs and checkpoints (frames,
+    ``.npz``), so that what the run leaves under chiprun_out/ stays small;
+    configs, transform files and PLYs stay."""
+    import shutil
+
+    shutil.rmtree(out / "images", ignore_errors=True)
+    for f in out.glob("*.npz"):
+        f.unlink()
 
 
 def repeated(fn, what):
@@ -328,7 +392,7 @@ def run_full(images, intr, poses, dev, card, run):
     require(stats["registered"] >= N_FRAMES - 5,
             f"bench gate: {stats['registered']} of {N_FRAMES} frames registered")
     require(ate < 0.1, f"bench gate: ATE {ate}")
-    return stats
+    return scene, stats
 
 
 def check_match_kernel(desc, mask, launches, card):
@@ -704,6 +768,342 @@ def check_match_pair_kernel(desc, mask, launches, card):
             "device_ms": device_ms}
 
 
+# ---- the fifth slice: command line, resume, streaming ---------------------------
+
+OUT = ROOT / "chiprun_out"
+# the CLI's configuration in the reference's schema, on the bench's frames and
+# the bench's thresholds (the schema carries no RANSAC counts, local-BA
+# cadence or landmark capacity: those stay at SfmOptions' defaults)
+CLI_CONFIG = {
+    "images_path": "/images", "transform_path": "/transform.json", "nerfy": True,
+    "max_data_count": 0, "ui": False,
+    "feature": {"min_features_count": 50, "max_features_count": 15000, "inliers_ratio": 0.85},
+    "reconstruction": {
+        "initial_pair": {"min_inliers": 100, "min_matches": 10, "min_corrs": 10,
+                         "max_reprojection_error": 4.0, "min_angle": 1.0},
+        "processing": {"min_matches": 10, "min_corrs": 10, "max_reprojection_error": 8.0,
+                       "min_angle": 1.0, "min_pnp_inliers": 15}},
+    "refine_ba": {"method": "LM", "max_iter": 30, "max_toler": 1e-5, "delta": 10.0,
+                  "use_preconditioner": False},
+    "global_ba": {"method": "LM", "max_iter": 50, "max_toler": 1e-7, "delta": 10.0,
+                  "use_preconditioner": False},
+}
+# `--frontend deep` matches all pairs with LightGlue: 24 frames (276 pairs)
+# keep the phase inside the time limit. Its thresholds are the deep bench's
+# (scripts/bench_deep.py: 60 initial inliers, match threshold 0.15), its
+# bounds are justified in PERF.md (Findings, PR 5).
+DEEP_CLI_FRAMES, DEEP_CLI_THRESHOLD, DEEP_CLI_MIN_INLIERS = 24, 0.15, 60
+DEEP_CLI_MIN_REGISTERED, DEEP_CLI_MAX_ATE = 22, 0.1
+RESUME_FROM, RESUME_SEGMENT = 50, 16
+
+
+def sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def write_pgm(path: Path, img: np.ndarray) -> None:
+    """One 8-bit binary PGM (P5): the frame quantized as an 8-bit image
+    file holds it (truncation, as tests/test_cli.py writes its PNGs)."""
+    u8 = (np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+    path.write_bytes(f"P5\n{u8.shape[1]} {u8.shape[0]}\n255\n".encode() + u8.tobytes())
+
+
+def ply_count(path: Path) -> int:
+    """Vertices of an ASCII PLY; fails unless its body holds exactly the
+    header's count."""
+    lines = path.read_text().splitlines()
+    require(lines[0] == "ply" and lines[2].startswith("element vertex"), f"{path}: header")
+    n = int(lines[2].split()[-1])
+    body = len(lines) - lines.index("end_header") - 1
+    require(body == n, f"{path}: header says {n} vertices, body has {body}")
+    return n
+
+
+def run_cli(images, poses, dev, card, deep_layers: int = 0):
+    """Images on disk -> ``eacham_tpu_torch.cli.main`` in this process ->
+    transform.json, transforms_nerf.json, cloud.ply, trajectory.ply; the
+    launch counts and the stage timer set to 0 just before and read just
+    after. ``deep_layers > 0``: ``--frontend deep`` with a LightGlue of that
+    many layers. Returns the phase's record."""
+    import shutil
+
+    import torch
+    from eacham_tpu_torch import cli
+    from eacham_tpu_torch.io.images import load_image_dir
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+    from eacham_tpu_torch.sfm.matches import all_pairs_index, bucket_pairs
+    from eacham_tpu_torch.utils import timer
+    from eacham_tpu_torch.utils.evaluate import trajectory_ate
+
+    deep = deep_layers > 0
+    out = OUT / ("cli_deep" if deep else "cli")
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "images").mkdir(parents=True)
+    n = len(images)
+    for i, img in enumerate(images):
+        write_pgm(out / "images" / f"frame{i:03d}.pgm", img)
+    cfg = json.loads(json.dumps(CLI_CONFIG))
+    cfg["root_path"] = str(out)
+    argv = [str(out / "config.json"), "--max-keypoints", str(MAX_KPS), "--quiet",
+            "--device", torch.device(dev).type]
+    if deep:
+        cfg["max_data_count"] = n
+        cfg["reconstruction"]["initial_pair"]["min_inliers"] = DEEP_CLI_MIN_INLIERS
+        argv += ["--frontend", "deep", "--match-threshold", str(DEEP_CLI_THRESHOLD)]
+    (out / "config.json").write_text(json.dumps(cfg, indent=1))
+
+    sync(dev)
+    timer.reset_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    sync(dev)
+    total = time.perf_counter() - t0
+    launches = launch_counts()
+    stages = {k: sum(v) / 1e3 for k, v in timer.stats().items()}
+    decoder = load_image_dir(out / "images", max_count=cfg["max_data_count"]).backend
+
+    data = json.loads((out / "transform.json").read_text())
+    frames = data["frames"]
+    ids = [int(f["file_path"][5:8]) for f in frames]
+    est = np.stack([np.asarray(f["transform_matrix"]) for f in frames])
+    ate = trajectory_ate(est, poses[ids]) if len(frames) >= 3 else float("inf")
+    nerf = json.loads((out / "transforms_nerf.json").read_text())["frames"]
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    nerf_ok = len(nerf) == len(frames) and all(
+        np.allclose(np.asarray(b["transform_matrix"]), np.linalg.inv(np.asarray(a["transform_matrix"])) @ flip,
+                    atol=1e-9) for a, b in zip(frames, nerf))
+    n_cloud = ply_count(out / "cloud.ply")
+    n_traj = ply_count(out / "trajectory.ply")
+    rec = {"phase": "cli_deep" if deep else "cli", "card": card, "frames": n,
+           "max_data_count": cfg["max_data_count"], "exit_code": rc, "decoder": decoder,
+           "seconds": {**stages, "total": total}, "registered": len(frames), "ate": ate,
+           "cloud_points": n_cloud, "trajectory_points": n_traj,
+           "match_pairs_launches": launches["match_pairs"],
+           "masked_attention_launches": launches["masked_attention"]}
+    print(json.dumps(rec), flush=True)
+    require(rc == 0, f"cli exited with {rc}")
+    require(decoder in ("native", "pil", "native+pil"), f"decoder {decoder}")
+    require(nerf_ok, "transforms_nerf.json is not inv(pose) @ diag(1, -1, -1, 1)")
+    require(n_traj == len(frames) and n_cloud > 0, (n_traj, n_cloud))
+    require(bool(torch.isfinite(torch.as_tensor(est)).all()), "non-finite poses in transform.json")
+    if deep:
+        from eacham_tpu_torch.features.deep.frontend import PAIR_CHUNK
+
+        P = bucket_pairs(all_pairs_index(n)).shape[0]
+        want = -(-P // PAIR_CHUNK) * 4 * deep_layers
+        require(launches["masked_attention"] == want,
+                f"attention launches {launches['masked_attention']}, want {want}")
+        require(len(frames) >= DEEP_CLI_MIN_REGISTERED,
+                f"cli_deep: {len(frames)} of {n} frames registered")
+        require(ate < DEEP_CLI_MAX_ATE, f"cli_deep: ATE {ate}")
+    else:
+        require(launches["match_pairs"] == 1,
+                f"the CLI launched the matcher {launches['match_pairs']} times, not once")
+        require(len(frames) >= n - 5, f"cli gate: {len(frames)} of {n} frames in transform.json")
+        require(ate < 0.1, f"cli gate: ATE {ate}")
+    tidy(out)
+    return rec
+
+
+def deregistered(scene, first: int):
+    """The scene with frames ``first``.. taken out of the map, as an
+    interrupted run leaves it (tests/test_export_checkpoint.py's way)."""
+    import torch
+
+    drop = scene.pose_valid & (torch.arange(scene.pose_valid.shape[0],
+                                            device=scene.pose_valid.device) >= first)
+    return scene._replace(pose_valid=scene.pose_valid & ~drop,
+                          kp2lm=torch.where(drop[:, None], -1, scene.kp2lm))
+
+
+def run_resume(scene, poses, dev, card):
+    """A finished scene with frames 50.. de-registered -> ``save_scene`` ->
+    ``load_scene`` -> ``resume_sfm(finalize=False)`` writing checkpoints every
+    segment of 16 -> the last checkpoint loaded and resumed with
+    ``finalize=True``; the bench's gate on the result."""
+    import torch
+    from eacham_tpu_torch.io.checkpoint import load_scene, save_scene
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions, resume_sfm
+    from eacham_tpu_torch.utils.evaluate import trajectory_ate
+
+    out = OUT / "resume"
+    out.mkdir(parents=True, exist_ok=True)
+    ck = out / "checkpoint.npz"
+    ck.unlink(missing_ok=True)
+    opt = SfmOptions(**BENCH_OPTIONS, max_features=MAX_KPS, sweep_segment=RESUME_SEGMENT,
+                     checkpoint_path=str(ck))
+    partial = deregistered(scene, RESUME_FROM)
+    sync(dev)
+    t0 = time.perf_counter()
+    save_scene(out / "partial.npz", partial)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, _ = load_scene(out / "partial.npz", device=dev)
+    sync(dev)
+    t_load = time.perf_counter() - t0
+    require(all(torch.equal(a, b) for a, b in zip(loaded, partial)),
+            "load_scene(save_scene(scene)) differs from the scene")
+    swept, st1 = resume_sfm(loaded, options=opt, verbose=False, finalize=False, device=dev)
+    last, _ = load_scene(ck, device=dev)
+    kept = bool((last.pose_valid <= swept.pose_valid).all())
+    final, st2 = resume_sfm(last, options=dataclasses.replace(opt, checkpoint_path=None),
+                            verbose=False, finalize=True, device=dev)
+    valid = final.pose_valid.cpu().numpy()
+    ate = trajectory_ate(final.pose.cpu().numpy()[valid], poses[valid])
+    rec = {"phase": "resume", "card": card, "from_registered": int(partial.pose_valid.sum()),
+           "seconds": {"save_scene": t_save, "load_scene": t_load,
+                       "sweep": st1["seconds"]["sweep"], "resume_sweep": st2["seconds"]["sweep"],
+                       "finalize": st2["seconds"]["finalize"]},
+           "checkpoints": st1["checkpoints"], "swept_registered": st1["registered"],
+           "checkpoint_registered": int(last.pose_valid.sum()),
+           "registered": st2["registered"], "landmarks": st2["landmarks"], "ate": ate,
+           "global_ba": st2["global_ba"]}
+    print(json.dumps(rec), flush=True)
+    require(st1["checkpoints"] >= 3, f"resume wrote {st1['checkpoints']} checkpoints")
+    require(kept, "the last checkpoint registers a frame that the sweep did not")
+    require(torch.equal(final.pose_valid, swept.pose_valid),
+            "resuming from the last checkpoint registers other frames than the sweep")
+    require(st2["registered"] >= N_FRAMES - 5, f"resume gate: {st2['registered']} registered")
+    require(ate < 0.1, f"resume gate: ATE {ate}")
+    tidy(out)
+    return rec
+
+
+def run_stream(images, poses, intr, dev, card):
+    """The bench's frames through ``StreamingReconstructor`` in windows of
+    10; after window 5 ``checkpoint`` and ``restore`` into a new object;
+    ``finalize()`` at the end. Launch counts set to 0 before each window and
+    read after it. Returns (record, window 5's matcher inputs)."""
+    import torch
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions
+    from eacham_tpu_torch.sfm.streaming import StreamingReconstructor
+    from eacham_tpu_torch.utils.evaluate import trajectory_ate
+
+    opt = SfmOptions(**BENCH_OPTIONS, max_features=MAX_KPS)
+    size = (WIDTH, HEIGHT)
+    rec = StreamingReconstructor(size, intr=intr, options=opt, max_frames=N_FRAMES,
+                                 device=dev, **STREAM)
+    imgs = torch.as_tensor(images, device=dev)
+    windows, captured = [], None
+    t_stream = time.perf_counter()
+    for w, s in enumerate(range(0, N_FRAMES, STREAM_CHUNK), start=1):
+        c0 = rec.pair_cursor
+        sync(dev)
+        reset_launch_counts()
+        t = time.perf_counter()
+        st = rec.process(imgs[s:s + STREAM_CHUNK])
+        sync(dev)
+        secs = time.perf_counter() - t
+        launches = launch_counts()["match_pairs"]
+        arrived_ok = not bool(rec.scene.pose_valid[rec.n_frames:].any())
+        windows.append({"window": w, "seconds": secs, "arrived": st["arrived"],
+                        "registered": st["registered"], "new_pairs": st["new_pairs"],
+                        "finalized": "global_ba" in st,
+                        "match_pairs_launches": launches})
+        print(f"stream window {w}: {secs:.4f} s, arrived {st['arrived']}, registered "
+              f"{st['registered']}, new pairs {st['new_pairs']}, match_pairs launches "
+              f"{launches}", flush=True)
+        require(arrived_ok, f"window {w}: an unarrived frame is registered")
+        require(launches == 1, f"window {w}: {launches} matcher launches, not one")
+        if w == STREAM_CHECKPOINT_AFTER:
+            captured = (rec.desc.clone(), rec.scene.kp_mask.clone(),
+                        rec.scene.pair_idx[c0:rec.pair_cursor].clone())
+            path = OUT / "stream" / "stream.npz"
+            path.parent.mkdir(parents=True, exist_ok=True)
+            t = time.perf_counter()
+            rec.checkpoint(path)
+            t_ck = time.perf_counter() - t
+            t = time.perf_counter()
+            rec2 = StreamingReconstructor.restore(
+                path, size, options=opt, window=STREAM["window"],
+                retrieval_k=STREAM["retrieval_k"], finalize_every=STREAM["finalize_every"],
+                device=dev)
+            sync(dev)
+            t_restore = time.perf_counter() - t
+            require(rec2.n_frames == rec.n_frames and rec2.pair_cursor == rec.pair_cursor
+                    and rec2.names == rec.names and torch.equal(rec2.desc, rec.desc)
+                    and all(torch.equal(a, b) for a, b in zip(rec2.scene, rec.scene)),
+                    "the restored stream differs from the checkpointed one")
+            rec = rec2
+    sync(dev)
+    t = time.perf_counter()
+    st = rec.finalize()
+    sync(dev)
+    t_final = time.perf_counter() - t
+    total = time.perf_counter() - t_stream
+    valid = rec.scene.pose_valid.cpu().numpy()
+    ate = trajectory_ate(rec.scene.pose.cpu().numpy()[valid], poses[valid])
+    out = {"phase": "stream", "card": card, "windows": len(windows),
+           "seconds": {"per_window": [w["seconds"] for w in windows], "checkpoint": t_ck,
+                       "restore": t_restore, "finalize": t_final, "total": total},
+           "registered_per_window": [w["registered"] for w in windows],
+           "new_pairs_per_window": [w["new_pairs"] for w in windows],
+           "match_pairs_launches_per_window": [w["match_pairs_launches"] for w in windows],
+           "registered": st["registered"], "landmarks": st["landmarks"], "ate": ate,
+           "global_ba": st["global_ba"]}
+    print(json.dumps(out), flush=True)
+    require(st["registered"] >= N_FRAMES - 5, f"stream gate: {st['registered']} registered")
+    require(ate < 0.1, f"stream gate: ATE {ate}")
+    tidy(OUT / "stream")
+    return out, captured
+
+
+def check_stream_kernel(captured, record, card):
+    """The batched matcher at the streaming shape, window 5's real inputs:
+    the [100, 512, 256] capacity table with the unarrived rows masked and
+    that window's new pairs, not bucketed. Adds its numbers to the kernel's
+    record."""
+    import torch
+    from eacham_tpu_torch.ops import match_kernel as mk
+
+    desc, kp_mask, pairs = captured
+    pairs = pairs.to(torch.int32).contiguous()
+    desc_bf, m = mk.prepare(desc, kp_mask)
+    P, Kp = pairs.shape[0], desc_bf.shape[1]
+    raw_k = repeated(lambda: mk.match_pairs_kernel(desc_bf, m, pairs), "match kernel, stream")
+    raw_p = mk.match_pairs_plain(desc_bf, m, pairs)
+    equal = [bool(torch.equal(a, b)) for a, b in zip(raw_k, raw_p)]
+    err = max(float((raw_k[i] - raw_p[i]).abs().max()) for i in (0, 2, 3, 5))
+    _, vk = mk.decide(raw_k, m, pairs, BENCH_OPTIONS["match_ratio"])
+    _, vp = mk.decide(raw_p, m, pairs, BENCH_OPTIONS["match_ratio"])
+    agree = float((vk == vp).float().mean())
+    same_j = bool(torch.equal(raw_k[1][vk & vp], raw_p[1][vk & vp]))
+    live = int(m.any(1).sum())
+    print(f"match kernel vs plain at the streaming shape (table N={desc_bf.shape[0]} with "
+          f"{live} arrived frames, Kp={Kp}, P={P} window pairs), {REPEATS} equal runs: raw "
+          f"equal {equal}, max |best/second diff| {err:.3g}, decision agreement {agree:.6f}, "
+          f"valid {int(vk.sum())} kernel / {int(vp.sum())} plain", flush=True)
+    require(all(equal) or (agree >= 0.999 and same_j),
+            f"kernel disagrees with its plain version at the streaming shape: {equal}, {agree}")
+    ms = cuda_ms(lambda: mk.match_pairs_kernel(desc_bf, m, pairs), reps=20)
+    cold = cold_ms(lambda: mk.match_pairs_kernel(desc_bf, m, pairs), desc_bf.device)
+    dev_ms = profiled_device_ms(lambda: mk.match_pairs_kernel(desc_bf, m, pairs),
+                                "match_pairs_kernel")
+    plain_ms = cuda_ms(lambda: mk.match_pairs_plain(desc_bf, m, pairs), reps=5)
+    # the work of this run: the products of P pairs, the table rows of the
+    # frames the pairs touch read once, the outputs written once
+    frames = int(torch.unique(pairs).numel())
+    flops = 2.0 * P * Kp * Kp * desc_bf.shape[2]
+    nbytes = (frames * Kp * (desc_bf.shape[2] * 2 + 1) + pairs.numel() * 4
+              + sum(o.numel() * o.element_size() for o in raw_k))
+    bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    print(f"match kernel at the streaming shape on {card}: {ms:.4f} ms a call warm (mean of "
+          f"20, the wrapper's host work included), {dev_ms:.4f} ms on the card alone "
+          f"(profiler), cold_ms {cold:.4f}, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_by}: {flops:.4g} FLOP, {nbytes:.4g} B)", flush=True)
+    require(ms >= bound_ms, f"match kernel {ms} ms is under its bound {bound_ms} ms")
+    record["stream"] = {"P": P, "frames": frames, "table_rows": desc_bf.shape[0],
+                        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "cold_ms": cold,
+                        "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def dump_scene(path, scene, poses, intr):
     """Save the seeded scene's match tables for scripts/init_pair_spread_*.py."""
     t = {k: getattr(scene, k).cpu().numpy() for k in (
@@ -747,6 +1147,12 @@ def main() -> int:
                       for k, v in info.items()), flush=True)
     for name, v in info.items():
         print(f"nvcc {name}:\n{v['log'].strip()}", flush=True)
+    from eacham_tpu_torch.io import native_loader
+
+    t0 = time.perf_counter()
+    require(native_loader.get_lib() is not None, "the native image loader did not build")
+    print(f"built the native image loader ({native_loader.lib_path().relative_to(ROOT)}) in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     t0 = time.perf_counter()
     images, poses, intr = render_workload()
@@ -763,7 +1169,13 @@ def main() -> int:
     del xy, desc, mask, scene
 
     for run in range(2):
-        run_full(images, intr, poses, dev, card, run)
+        scene, _ = run_full(images, intr, poses, dev, card, run)
+    run_resume(scene, poses, dev, card)
+    del scene
+    run_cli(images, poses, dev, card)
+    _, captured = run_stream(images, poses, intr, dev, card)
+    check_stream_kernel(captured, records[0], card)
+    del captured
 
     models, deep, deep_launches = run_deep(images, intr, dev, card)
     if args.dump_deep:
@@ -772,6 +1184,9 @@ def main() -> int:
     pair_launches = run_pair_path(deep[1], deep[2])
     records.append(check_match_pair_kernel(deep[1], deep[2], pair_launches, card))
     check_deep(models, deep, deep_launches, poses)
+    deep_layers = models[1].n_layers
+    del models, deep
+    run_cli(images[:DEEP_CLI_FRAMES], poses, dev, card, deep_layers=deep_layers)
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,11 @@ plain PyTorch version beside it.
 
 Entry points (``features.frontend.extract_features``,
 ``features.deep.frontend.load_frontend_params`` / ``extract_deep_batch`` /
-``build_match_tables_deep``, ``sfm.pipeline.initialize_sfm``) run on the
-card by default and raise when there is none; pass ``device="cpu"`` to run
-the plain versions on the CPU.
+``build_match_tables_deep``, ``sfm.pipeline.initialize_sfm`` / ``run_sfm`` /
+``resume_sfm``, ``sfm.streaming.StreamingReconstructor``,
+``io.checkpoint.load_scene`` and the command line ``cli``) run on the card
+by default and raise when there is none; pass ``device="cpu"`` (``--device
+cpu``) to run the plain versions on the CPU.
 """
 
 import eacham_tpu_torch.fp  # noqa: F401  (fp32 matmul/conv policy)

@@ -26,3 +26,10 @@ def as_tensor(x, device: torch.device, dtype: torch.dtype | None = None):
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype or x.dtype)
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def to_numpy(x) -> np.ndarray:
+    """tensor (on any device) or array-like -> numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

@@ -14,9 +14,13 @@ keeps: PnP gathers 3D-2D correspondences from all registered neighbours of
 the new frame, not only the selected edge (``pnp_pair_only=True`` for the
 old behaviour); next-best-view ties break by match count.
 
+``resume_sfm`` continues a (checkpointed) scene: the registration sweep
+over the frames still unregistered, then the finalization. With
+``checkpoint_path`` set, both sweeps save the scene after every
+``checkpoint_every``-th segment (``io/checkpoint.py``).
+
 Not carried yet, and refused with ``NotImplementedError``: sharding over
-several devices, checkpoints, and the loop-closing / map-rebuild stage of
-windowed runs.
+several devices, and the loop-closing / map-rebuild stage of windowed runs.
 """
 
 from __future__ import annotations
@@ -51,7 +55,7 @@ class SfmOptions:
     between the two packages unchanged. ``device_loop`` picks between the
     segmented sweep of ``sfm/device_loop.py`` (with interim global BA
     between segments) and the plain per-frame loop; both run on the host
-    here. ``n_devices > 1`` and ``checkpoint_path`` are refused."""
+    here. ``n_devices > 1`` is refused."""
 
     # features / matching
     max_features: int = 1024
@@ -460,20 +464,18 @@ def _ba_configs(opt: SfmOptions):
     return refine_cfg, global_cfg
 
 
-def _refuse_unported(opt: SfmOptions, n_far: int = 0) -> None:
+def _refuse_unported(opt: SfmOptions, n_far: int = 0, loop_closing: bool = True) -> None:
     """Raise for what a run with these options and ``n_far`` long-range
-    edges would enter and this port does not carry yet."""
+    edges would enter and this port does not carry yet (``loop_closing``:
+    the caller has a loop-closing stage, as ``run_sfm`` does and
+    ``resume_sfm`` does not)."""
     if opt.n_devices > 1:
         raise NotImplementedError(
             "n_devices > 1: sharding over several devices is not ported yet "
             "(ROADMAP queue 1, item 14: parallel/)")
-    if opt.checkpoint_path:
-        raise NotImplementedError(
-            "checkpoint_path: scene checkpoints are not ported yet "
-            "(ROADMAP queue 1, item 10: io/)")
     globally = opt.run_global_ba and opt.global_max_iters > 0
     windowed_far = opt.pair_window > 0 and n_far > 0
-    if windowed_far and opt.device_loop and opt.loop_close:
+    if windowed_far and loop_closing and opt.device_loop and opt.loop_close:
         raise NotImplementedError(
             f"loop_close with pair_window > 0 and {n_far} long-range edges: the "
             "pose-graph stage is not ported yet (ROADMAP queue 1, item 12: "
@@ -511,8 +513,9 @@ def run_sfm(
 
     ``stats``: what ``initialize_sfm`` reports, plus ``registered``,
     ``excluded``, ``landmarks``, the global BA's ``global_ba`` (iterations,
-    initial and final cost; None when it did not run), and the wall
-    seconds of ``sweep`` and ``finalize`` beside the earlier stages'.
+    initial and final cost; None when it did not run), ``checkpoints``
+    (scene checkpoints written, see ``resume_sfm``), and the wall seconds of
+    ``sweep`` and ``finalize`` beside the earlier stages'.
     """
     opt = options
     _refuse_unported(opt)
@@ -543,32 +546,11 @@ def run_sfm(
     # ---- incremental loop -----------------------------------------------------
     t = time.perf_counter()
     excluded = torch.zeros(N, dtype=torch.bool, device=dev)
+    written: list[int] = []
     if opt.device_loop:
-        from eacham_tpu_torch.sfm.device_loop import registration_sweep
-
-        on_segment = None
-        if opt.interim_ba_iters > 0:
-            interim_cfg = global_cfg._replace(max_iters=opt.interim_ba_iters)
-
-            def on_segment(s):
-                s, info = _ba(s, s.pose_valid, interim_cfg, opt.min_ba_landmarks,
-                              program_iters=opt.ba_program_iters)
-                if info is not None:
-                    log(f"interim BA: {float(info['initial_cost']):.1f} -> "
-                        f"{float(info['final_cost']):.1f}")
-                return s
-
-        scene, excluded, n_reg = registration_sweep(
-            scene, excluded, fp_tbl, generator, opt.max_repr_error, opt.min_tri_angle,
-            min_pnp_inliers=opt.min_pnp_inliers, min_ba_landmarks=opt.min_ba_landmarks,
-            ba_cfg=refine_cfg, max_observers=opt.max_observers,
-            n_hyp_pnp=opt.ransac_hyps_pnp, pnp_pair_only=opt.pnp_pair_only,
-            ba_max_cams=opt.local_ba_max_cams,
-            # a window of C cameras holds at most C * K observations
-            ba_max_obs=min(opt.local_ba_max_obs, min(opt.local_ba_max_cams, N) * K),
-            ba_max_lms=opt.local_ba_max_lms, ba_every=opt.local_ba_every,
-            ba_free_span=opt.local_ba_free_span, segment=opt.sweep_segment,
-            on_segment=on_segment)
+        on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log), opt, log, written)
+        scene, excluded, n_reg = _sweep(scene, excluded, fp_tbl, generator, opt,
+                                        refine_cfg, on_segment)
         log(f"sweep: +{n_reg} frames registered, {int(excluded.sum())} excluded")
     else:
         scene, excluded = _host_loop(scene, excluded, fp_tbl, generator, opt, refine_cfg, log)
@@ -579,7 +561,143 @@ def run_sfm(
     scene, final = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors)
     _sync(dev)
     stats["seconds"]["finalize"] = time.perf_counter() - t
-    stats.update(final)
+    stats.update(final, checkpoints=len(written))
+    log(f"done: {stats['registered']}/{N} frames registered, {stats['landmarks']} landmarks")
+    return scene, stats
+
+
+def _interim_ba(opt: SfmOptions, global_cfg: BAConfig, log):
+    """The sweep's between-segment hook: a short global BA that arrests the
+    drift of a long local-window sweep (None when ``interim_ba_iters`` is 0)."""
+    if opt.interim_ba_iters <= 0:
+        return None
+    interim_cfg = global_cfg._replace(max_iters=opt.interim_ba_iters)
+
+    def on_segment(s):
+        s, info = _ba(s, s.pose_valid, interim_cfg, opt.min_ba_landmarks,
+                      program_iters=opt.ba_program_iters)
+        if info is not None:
+            log(f"interim BA: {float(info['initial_cost']):.1f} -> "
+                f"{float(info['final_cost']):.1f}")
+        return s
+
+    return on_segment
+
+
+def _with_checkpoint(on_segment, opt: SfmOptions, log, written: list | None = None):
+    """Wrap a sweep's ``on_segment`` hook with a scene checkpoint
+    (``opt.checkpoint_path``) after every ``opt.checkpoint_every``-th
+    segment: the crash-resume hook. Appends the segment number of each
+    write to ``written``."""
+    if not opt.checkpoint_path:
+        return on_segment
+    seg = 0
+
+    def cb(s):
+        nonlocal seg
+        if on_segment is not None:
+            s = on_segment(s)
+        seg += 1
+        if seg % max(opt.checkpoint_every, 1) == 0:
+            from eacham_tpu_torch.io.checkpoint import save_scene
+
+            save_scene(opt.checkpoint_path, s)
+            if written is not None:
+                written.append(seg)
+            log(f"checkpoint: segment {seg} -> {opt.checkpoint_path}")
+        return s
+
+    return cb
+
+
+def _sweep(scene: Scene, excluded, fp_tbl, generator, opt: SfmOptions, refine_cfg: BAConfig,
+           on_segment):
+    """``device_loop.registration_sweep`` with a run's options. Returns
+    (scene, excluded, n_registered)."""
+    from eacham_tpu_torch.sfm.device_loop import registration_sweep
+
+    N, K = scene.kp_mask.shape
+    return registration_sweep(
+        scene, excluded, fp_tbl, generator, opt.max_repr_error, opt.min_tri_angle,
+        min_pnp_inliers=opt.min_pnp_inliers, min_ba_landmarks=opt.min_ba_landmarks,
+        ba_cfg=refine_cfg, max_observers=opt.max_observers,
+        n_hyp_pnp=opt.ransac_hyps_pnp, pnp_pair_only=opt.pnp_pair_only,
+        ba_max_cams=opt.local_ba_max_cams,
+        # a window of C cameras holds at most C * K observations
+        ba_max_obs=min(opt.local_ba_max_obs, min(opt.local_ba_max_cams, N) * K),
+        ba_max_lms=opt.local_ba_max_lms, ba_every=opt.local_ba_every,
+        ba_free_span=opt.local_ba_free_span, segment=opt.sweep_segment,
+        on_segment=on_segment)
+
+
+@torch.no_grad()
+def resume_sfm(
+    scene: Scene,
+    options: SfmOptions = SfmOptions(),
+    excluded=None,
+    verbose: bool = True,
+    finalize: bool = True,
+    abs_anchors: tuple | None = None,
+    generator: torch.Generator | None = None,
+    device: str | torch.device | None = "cuda",
+):
+    """Continue a reconstruction from a (possibly checkpointed) Scene.
+
+    Re-runs the registration sweep over still-unregistered frames (with the
+    interim-BA cadence and the checkpoints of ``run_sfm``'s sweep) and, with
+    ``finalize``, the global-BA finalization. ``finalize=False`` is the
+    streaming fast path: new frames get local-window refinement only, and
+    the caller amortizes the global solve over windows
+    (``StreamingReconstructor(finalize_every=...)``). ``generator`` drives
+    the PnP draws; by default it is seeded ``options.seed + 1``.
+
+    Returns ``(scene, stats)``: ``registered``, ``landmarks``,
+    ``initialized``, ``checkpoints`` (writes made) and the wall ``seconds``
+    of ``sweep`` (and ``finalize``), then with ``finalize`` ``excluded``,
+    ``global_ba`` and ``init_pair`` (-1, -1), without it ``finalized``
+    False.
+    """
+    opt = options
+    dev = resolve_device(device)
+    scene = Scene(*(as_tensor(x, dev) for x in scene))
+    N, K = scene.kp_mask.shape
+    excluded = (torch.zeros(N, dtype=torch.bool, device=dev) if excluded is None
+                else as_tensor(excluded, dev, torch.bool))
+
+    def log(*a):
+        if verbose:
+            print("[sfm]", *a, flush=True)
+
+    if int(scene.pose_valid.sum()) < 2:
+        log("resume: scene has no initialized pair")
+        return scene, {"registered": 0, "landmarks": 0, "initialized": False}
+
+    pi_np = scene.pair_idx.cpu().numpy()
+    span = np.abs(pi_np[:, 1].astype(np.int64) - pi_np[:, 0])
+    n_far = int((scene.pair_ok.cpu().numpy() & (span > max(N // 4, 30))).sum())
+    _refuse_unported(opt, n_far, loop_closing=False)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(opt.seed + 1)
+    fp_tbl = torch.as_tensor(frame_pair_table(pi_np, N), device=dev)
+    refine_cfg, global_cfg = _ba_configs(opt)
+    written: list[int] = []
+    t = time.perf_counter()
+    on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log), opt, log, written)
+    scene, excluded, n_reg = _sweep(scene, excluded, fp_tbl, generator, opt, refine_cfg,
+                                    on_segment)
+    _sync(dev)
+    seconds = {"sweep": time.perf_counter() - t}
+    log(f"resume sweep: +{n_reg} frames registered")
+    if not finalize:
+        return scene, {"registered": int((scene.pose_valid & ~excluded).sum()),
+                       "landmarks": int(scene.lm_valid.sum()), "initialized": True,
+                       "finalized": False, "checkpoints": len(written), "seconds": seconds}
+    t = time.perf_counter()
+    scene, stats = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors)
+    _sync(dev)
+    seconds["finalize"] = time.perf_counter() - t
+    stats.update(initialized=True, init_pair=(-1, -1), checkpoints=len(written),
+                 seconds=seconds)
     log(f"done: {stats['registered']}/{N} frames registered, {stats['landmarks']} landmarks")
     return scene, stats
 

@@ -3,6 +3,7 @@ chip_smoke.py nor bench_gpu.py, imports JAX or the JAX package, and its entry po
 carry on silently on the CPU when a card was asked for."""
 
 import ast
+import json
 import pkgutil
 import subprocess
 import sys
@@ -35,7 +36,12 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
             "eacham_tpu_torch.features.deep.frontend",
             "eacham_tpu_torch.geometry.pnp", "eacham_tpu_torch.ba.core",
             "eacham_tpu_torch.sfm.triangulate", "eacham_tpu_torch.sfm.filtering",
-            "eacham_tpu_torch.sfm.device_loop", "eacham_tpu_torch.sfm.pipeline"} <= set(mods)
+            "eacham_tpu_torch.sfm.device_loop", "eacham_tpu_torch.sfm.pipeline",
+            "eacham_tpu_torch.sfm.streaming", "eacham_tpu_torch.cli",
+            "eacham_tpu_torch.utils.timer", "eacham_tpu_torch.io",
+            *(f"eacham_tpu_torch.io.{m}" for m in (
+                "native_loader", "images", "config", "saver", "nerf", "export",
+                "checkpoint", "stream"))} <= set(mods)
     code = "\n".join([
         "import sys",
         f"sys.path.insert(0, {str(ROOT)!r})",
@@ -111,6 +117,36 @@ def test_entry_points_refuse_a_missing_card():
     from tests.test_torch_ba import make_problem
     with pytest.raises(RuntimeError, match="no CUDA device"):
         convert.ba_problem_from_numpy(make_problem()[0])
+
+
+def test_io_streaming_and_cli_entry_points_refuse_a_missing_card(tmp_path):
+    """The entry points of the fifth slice raise as well: loading a scene
+    checkpoint, resuming, streaming and the command line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from eacham_tpu_torch import cli
+    from eacham_tpu_torch.io.checkpoint import load_scene, save_scene
+    from eacham_tpu_torch.sfm.pipeline import resume_sfm, run_sfm
+    from eacham_tpu_torch.sfm.streaming import StreamingReconstructor
+
+    scene, _ = run_sfm(np.zeros((2, 8, 2), np.float32), np.zeros((2, 8, 256), np.float32),
+                       np.ones((2, 8), bool), (64, 64), device="cpu")
+    save_scene(tmp_path / "s.npz", scene)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_scene(tmp_path / "s.npz")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resume_sfm(scene, verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingReconstructor((64, 64), max_frames=4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingReconstructor.restore(tmp_path / "s.npz", (64, 64))
+    (tmp_path / "images").mkdir()
+    (tmp_path / "images" / "a.pgm").write_bytes(b"P5\n2 2\n255\n" + bytes(4))
+    cfg = json.loads((ROOT / "configs" / "SfmConfig.json").read_text())
+    cfg["root_path"] = str(tmp_path)
+    (tmp_path / "cfg.json").write_text(json.dumps(cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.run(str(tmp_path / "cfg.json"), verbose=False)
 
 
 def test_bench_gpu_fails_without_a_card():

@@ -6,7 +6,8 @@ The two packages cannot share RANSAC draws, so they are held to outcomes:
 every frame registered and an ATE under 0.02 (the trajectory is 2.75 long;
 keypoints carry 0.3 px of noise at a focal length of 240). The port's two
 loop forms must agree on the registered count. What the port does not
-carry yet must raise ``NotImplementedError`` naming its ROADMAP item."""
+carry yet must raise ``NotImplementedError`` naming its ROADMAP item;
+``checkpoint_path`` is carried and writes the scene between segments."""
 
 import dataclasses
 
@@ -148,7 +149,7 @@ def test_sweep_step_limit_segments_and_exclusion(sequence):
     assert n3 == 0 and int(ex3.sum()) == N_FRAMES - 2 and int(s3.pose_valid.sum()) == 2
 
 
-def test_what_is_not_ported_raises(sequence):
+def test_what_is_not_ported_raises(sequence, tmp_path):
     uv, dsc, vis, intr, _ = sequence
 
     def run(**kw):
@@ -157,8 +158,10 @@ def test_what_is_not_ported_raises(sequence):
 
     with pytest.raises(NotImplementedError, match="item 14"):
         run(n_devices=2)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        run(checkpoint_path="scene.npz")
+    # scene checkpoints are ported: the sweep writes one between segments
+    ckpt = tmp_path / "scene.npz"
+    scene, stats = run(checkpoint_path=str(ckpt))
+    assert stats["registered"] == N_FRAMES and stats["checkpoints"] >= 2 and ckpt.exists()
     # a windowed run whose long-range edges (span > 30) would enter the
     # loop-closing stage or the map rebuild
     with pytest.raises(NotImplementedError, match="item 12"):
