@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (eacham_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--dump tables.npz] [--dump-deep tables_deep.npz]
+                          [--dump-loop loop.npz]
 
 1. prints the card's name and power limit;
 2. builds every CUDA kernel of the port from ``eacham_tpu_torch/csrc``
@@ -68,11 +69,25 @@
      that window's pairs, not bucketed), three runs with equal bits;
    - ``cli_deep``: the CLI with ``--frontend deep`` on the first 24 frames
      (all 276 pairs), held to DEEP_CLI_MIN_REGISTERED and DEEP_CLI_MAX_ATE,
-     with every attention launch counted.
+     with every attention launch counted;
+7. drives the long-trajectory path at scripts/stress_500.py's recipe
+   (``loop``): 500 frames of the surface world on the stress orbit, rendered
+   by a pool of processes, ``extract_features(K=1024)`` -> ``run_sfm`` with
+   the recipe's options (windowed match graph over about 8192 pairs, sweep,
+   the loop-closing stage, global BA and three map-refinement rounds); one
+   JSON line with each stage's seconds, the ATE after the sweep, after the
+   loop stage and at the end, and the stage statistics; gate: at least 475
+   of 500 frames registered, ATE < 1.0, one ``match_pairs`` launch, the loop
+   stage entered, three refinement rounds. Then both loop solvers on the
+   card's own measurements of the finished scene under a smooth drift ramp
+   (the loop consistency must fall to half or less), and the batched
+   matcher at this shape against its plain version (``kernels[0].loop``).
 
 The phases write what they make under ``chiprun_out/`` (images, configs,
 outputs, checkpoints). ``--dump`` / ``--dump-deep`` also save a path's match tables and
-ground-truth poses, the input of ``scripts/init_pair_spread_{jax,torch}.py``.
+ground-truth poses, the input of ``scripts/init_pair_spread_{jax,torch}.py``;
+``--dump-loop`` the loop phase's poses and loop measurements, the input of
+``scripts/loop_replay_{jax,torch}.py``.
 
 Prints one JSON line of per-kernel numbers, then the contract line
 ``{"ok": true, "device": {...}}`` last. Any failure exits non-zero; without
@@ -1053,19 +1068,22 @@ def run_stream(images, poses, intr, dev, card):
     return out, captured
 
 
-def check_stream_kernel(captured, record, card):
-    """The batched matcher at the streaming shape, window 5's real inputs:
-    the [100, 512, 256] capacity table with the unarrived rows masked and
-    that window's new pairs, not bucketed. Adds its numbers to the kernel's
-    record."""
+def check_kernel_at(tag, desc, kp_mask, pairs, record, card, launches=None, plain_reps=5,
+                    profile=True):
+    """The batched matcher held against its plain version on a phase's own
+    inputs (three runs with equal bits), timed warm, cold (the first launch
+    after the L2 was overwritten) and, with ``profile``, on the card alone
+    under the profiler, beside the plain version and the bound; adds its
+    numbers to the kernel's record under ``tag``. Without ``profile`` (a
+    launch of milliseconds, where the wrapper's 0.1 ms of host work hides
+    behind the previous launch) the warm mean is the card's time."""
     import torch
     from eacham_tpu_torch.ops import match_kernel as mk
 
-    desc, kp_mask, pairs = captured
     pairs = pairs.to(torch.int32).contiguous()
     desc_bf, m = mk.prepare(desc, kp_mask)
     P, Kp = pairs.shape[0], desc_bf.shape[1]
-    raw_k = repeated(lambda: mk.match_pairs_kernel(desc_bf, m, pairs), "match kernel, stream")
+    raw_k = repeated(lambda: mk.match_pairs_kernel(desc_bf, m, pairs), f"match kernel, {tag}")
     raw_p = mk.match_pairs_plain(desc_bf, m, pairs)
     equal = [bool(torch.equal(a, b)) for a, b in zip(raw_k, raw_p)]
     err = max(float((raw_k[i] - raw_p[i]).abs().max()) for i in (0, 2, 3, 5))
@@ -1074,17 +1092,17 @@ def check_stream_kernel(captured, record, card):
     agree = float((vk == vp).float().mean())
     same_j = bool(torch.equal(raw_k[1][vk & vp], raw_p[1][vk & vp]))
     live = int(m.any(1).sum())
-    print(f"match kernel vs plain at the streaming shape (table N={desc_bf.shape[0]} with "
-          f"{live} arrived frames, Kp={Kp}, P={P} window pairs), {REPEATS} equal runs: raw "
+    print(f"match kernel vs plain at the {tag} shape (table N={desc_bf.shape[0]} with "
+          f"{live} live frames, Kp={Kp}, P={P} pairs), {REPEATS} equal runs: raw "
           f"equal {equal}, max |best/second diff| {err:.3g}, decision agreement {agree:.6f}, "
           f"valid {int(vk.sum())} kernel / {int(vp.sum())} plain", flush=True)
     require(all(equal) or (agree >= 0.999 and same_j),
-            f"kernel disagrees with its plain version at the streaming shape: {equal}, {agree}")
+            f"kernel disagrees with its plain version at the {tag} shape: {equal}, {agree}")
     ms = cuda_ms(lambda: mk.match_pairs_kernel(desc_bf, m, pairs), reps=20)
     cold = cold_ms(lambda: mk.match_pairs_kernel(desc_bf, m, pairs), desc_bf.device)
-    dev_ms = profiled_device_ms(lambda: mk.match_pairs_kernel(desc_bf, m, pairs),
-                                "match_pairs_kernel")
-    plain_ms = cuda_ms(lambda: mk.match_pairs_plain(desc_bf, m, pairs), reps=5)
+    dev_ms = (profiled_device_ms(lambda: mk.match_pairs_kernel(desc_bf, m, pairs),
+                                 "match_pairs_kernel") if profile else None)
+    plain_ms = cuda_ms(lambda: mk.match_pairs_plain(desc_bf, m, pairs), reps=plain_reps)
     # the work of this run: the products of P pairs, the table rows of the
     # frames the pairs touch read once, the outputs written once
     frames = int(torch.unique(pairs).numel())
@@ -1093,15 +1111,271 @@ def check_stream_kernel(captured, record, card):
               + sum(o.numel() * o.element_size() for o in raw_k))
     bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-    print(f"match kernel at the streaming shape on {card}: {ms:.4f} ms a call warm (mean of "
-          f"20, the wrapper's host work included), {dev_ms:.4f} ms on the card alone "
-          f"(profiler), cold_ms {cold:.4f}, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"({bound_by}: {flops:.4g} FLOP, {nbytes:.4g} B)", flush=True)
+    alone = "" if dev_ms is None else f", {dev_ms:.4f} ms on the card alone (profiler)"
+    print(f"match kernel at the {tag} shape on {card}: {ms:.4f} ms a call warm (mean of "
+          f"20, the wrapper's host work included){alone}, cold_ms {cold:.4f}, plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP, "
+          f"{nbytes:.4g} B)", flush=True)
     require(ms >= bound_ms, f"match kernel {ms} ms is under its bound {bound_ms} ms")
-    record["stream"] = {"P": P, "frames": frames, "table_rows": desc_bf.shape[0],
-                        "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "cold_ms": cold,
-                        "plain_ms": plain_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by}
+    record[tag] = {"P": P, "Kp": Kp, "frames": frames, "table_rows": desc_bf.shape[0],
+                   "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "cold_ms": cold,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    if launches is not None:
+        record[tag]["launches"] = launches
+
+
+# ---- the sixth slice: the long-trajectory path -----------------------------------
+
+# scripts/stress_500.py's recipe: 500 frames of the surface world on the
+# radius-14 stress orbit (one turn and 4% more, so the tail revisits the
+# start), K=1024, and its options (stress_500.py:116-131)
+LOOP_FRAMES, LOOP_KPS, LOOP_EXTRACT_CHUNK = 500, 1024, 500
+LOOP_OPTIONS = dict(
+    pair_window=10, pair_retrieval_k=3, max_observers=12,
+    min_initial_inliers=80, min_matches=20, match_ratio=0.85,
+    init_min_tri_angle_deg=0.8, min_tri_angle_deg=0.8,
+    ransac_hyps_e=256, ransac_hyps_h=128, ransac_hyps_pnp=256,
+    lm_capacity=131072, refine_max_iters=30, global_max_iters=100,
+    match_chunk=32, interim_ba_iters=10, loop_close=True, local_ba_every=1,
+    local_ba_free_span=6, map_refine_rounds=-1, sweep_segment=128, ba_program_iters=10)
+# the gate: the JAX package's run of this recipe registered 500/500 at ATE
+# 0.416 (README.md), its earlier runs of related recipes spread 0.82-1.41
+# (SCALING.md); the orbit's radius is 14
+LOOP_MIN_REGISTERED, LOOP_MAX_ATE = 475, 1.0
+# the drift that the repair check puts on the finished trajectory: a smooth
+# ramp (tests/test_submap.py's form) of up to 0.4 rad and 0.2 of the
+# trajectory's radius (the reconstruction's scale is its own)
+LOOP_DRIFT_ROT, LOOP_DRIFT_TRANS = 0.4, 0.2
+
+
+def _render_frames(args):
+    """A process pool's task: render the views ``poses`` of the scene."""
+    blobs, poses, intr = args
+    from eacham_tpu_torch.utils.synthetic import render_view
+
+    return np.stack([render_view(blobs, T, intr, WIDTH, HEIGHT) for T in poses])
+
+
+def render_loop_workload():
+    """The stress recipe's 500 frames, rendered by a pool of processes
+    over the host's cores (untimed set-up)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from eacham_tpu_torch.utils.synthetic import make_surface_scene, stress_orbit_poses
+
+    f = 1.2 * max(WIDTH, HEIGHT)
+    intr = np.array([f, f, WIDTH / 2, HEIGHT / 2], np.float32)
+    blobs = make_surface_scene(np.random.default_rng(0), n_blobs=4000, jitter=0.05)
+    poses = stress_orbit_poses(LOOP_FRAMES)
+    workers = max(1, min(os.cpu_count() or 1, 16))
+    tasks = [(blobs, poses[c], intr)
+             for c in np.array_split(np.arange(LOOP_FRAMES), 4 * workers) if len(c)]
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        images = np.concatenate(list(ex.map(_render_frames, tasks)))
+    return images, poses, intr, workers
+
+
+def _ate(pose, valid, gt):
+    from eacham_tpu_torch.utils.evaluate import trajectory_ate
+
+    v = valid.cpu().numpy()
+    return trajectory_ate(pose.cpu().numpy()[v], gt[v]) if v.sum() >= 3 else float("inf")
+
+
+def run_loop(images, poses, intr, dev, card):
+    """The long-trajectory path once: ``extract_features(K=1024)`` ->
+    ``run_sfm`` with the stress recipe's options (windowed match graph with
+    one ``match_pairs`` launch -> init pair -> sweep with interim BA ->
+    loop-closing stage -> global BA and the three map-refinement rounds),
+    launch counts set to 0 just before and read just after. The poses
+    after the sweep and after the loop stage are read by wrapping the two
+    stage functions. Returns (scene, stats, features, record)."""
+    import torch
+    from eacham_tpu_torch.features.frontend import extract_features
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+    from eacham_tpu_torch.sfm import pipeline as pl
+
+    snaps = {}
+    close_loops, finalize = pl._close_loops, pl._finalize
+
+    def at_loop(scene, *a, **k):
+        snaps["sweep"] = (scene.pose.clone(), scene.pose_valid.clone())
+        return close_loops(scene, *a, **k)
+
+    def at_finalize(scene, *a, **k):
+        snaps["loop"] = (scene.pose.clone(), scene.pose_valid.clone())
+        return finalize(scene, *a, **k)
+
+    sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    parts = []
+    for lo in range(0, LOOP_FRAMES, LOOP_EXTRACT_CHUNK):
+        imgs = torch.as_tensor(images[lo:lo + LOOP_EXTRACT_CHUNK], device=dev)
+        parts.append(extract_features(imgs, max_keypoints=LOOP_KPS, device=dev))
+        del imgs
+    xy, desc, mask = (torch.cat([p[i] for p in parts]) for i in (0, 1, 3))
+    del parts
+    sync(dev)
+    t_extract = time.perf_counter() - t0
+    pl._close_loops, pl._finalize = at_loop, at_finalize
+    try:
+        scene, stats = pl.run_sfm(xy, desc, mask, image_size=(WIDTH, HEIGHT), intr=intr,
+                                  options=pl.SfmOptions(**LOOP_OPTIONS), verbose=True,
+                                  device=dev)
+    finally:
+        pl._close_loops, pl._finalize = close_loops, finalize
+    sync(dev)
+    total = time.perf_counter() - t0
+    launches = launch_counts()
+    require(stats["initialized"], f"the loop phase found no init pair: {stats}")
+    ate = {stage: _ate(*snaps[stage], poses) for stage in ("sweep", "loop") if stage in snaps}
+    ate["final"] = _ate(scene.pose, scene.pose_valid, poses)
+    sec = stats["seconds"]
+    loop = stats.get("loop")
+    rounds = stats["map_refine"]
+    rec = {"phase": "loop", "card": card, "frames": LOOP_FRAMES, "max_keypoints": LOOP_KPS,
+           "seconds": dict(
+               extract=t_extract, match_graph=sec["match_graph"],
+               init=sec["init_pair"] + sec.get("seed", 0.0), sweep=sec["sweep"],
+               loop=sec.get("loop"),
+               loop_measure=loop["seconds"].get("measure") if loop else None,
+               loop_submap=loop["seconds"].get("submap") if loop else None,
+               loop_edges=loop["seconds"].get("edges") if loop else None,
+               loop_solve=loop["seconds"].get("solve") if loop else None,
+               loop_rebuild=loop["seconds"].get("rebuild") if loop else None,
+               refine_rebuild=[r["seconds"]["rebuild"] for r in rounds],
+               refine_ba=[r["seconds"]["ba"] for r in rounds],
+               finalize=sec["finalize"], total=total),
+           "pairs": stats["pairs"], "edges": stats["edges"], "init_pair": list(stats["init_pair"]),
+           "registered": stats["registered"], "excluded": stats["excluded"],
+           "landmarks": stats["landmarks"], "ate": ate, "loop": loop, "map_refine": rounds,
+           "global_ba": stats["global_ba"], "match_pairs_launches": launches["match_pairs"]}
+    print(json.dumps(rec), flush=True)
+    if loop is not None:
+        print(f"loop stage: {loop['n_far']} long-range edges, {loop['loop_rows']} edges "
+              f"measured, consistency {loop['err0']:.4f} deg after the sweep, decision "
+              f"{loop['decision']}{' (submap applied)' if loop['submap'] else ''}", flush=True)
+    require(launches["match_pairs"] == 1,
+            f"the loop phase launched the matcher {launches['match_pairs']} times, not once")
+    require(loop is not None and loop["n_far"] > 0 and loop["err0"] is not None,
+            f"the loop stage was not entered: {loop}")
+    require(len(rounds) == 3, f"{len(rounds)} map-refine rounds, not 3")
+    require(bool(scene.pose.isfinite().all()) and bool(scene.points[scene.lm_valid].isfinite().all()),
+            "the loop phase left non-finite poses or landmarks")
+    require(stats["registered"] >= LOOP_MIN_REGISTERED,
+            f"loop gate: {stats['registered']} of {LOOP_FRAMES} frames registered")
+    require(ate["final"] < LOOP_MAX_ATE, f"loop gate: ATE {ate['final']}")
+    return scene, stats, (xy, desc, mask), rec
+
+
+def check_drift_repair(scene, poses, dev, card, dump=None):
+    """Both loop solvers on the card's own measurements of the finished
+    scene: the loop PnP and edge measurements, a smooth drift ramp on the
+    registered poses, then ``submap_align`` and ``optimize_pose_graph``
+    with the loop stage's gates (the aligned submaps are kept below 0.75
+    of the drifted consistency; the pose graph starts from what was kept
+    and is accepted if it halves the consistency, or after kept submaps
+    ends under the noise floor). Every solver output must be finite and
+    what the gates keep no less consistent than the drifted poses.
+
+    On this recipe's measurements neither solver halves the ramp's
+    inconsistency, in the JAX package either (the same arrays replayed
+    through both, scripts/loop_replay_{jax,torch}.py; SCALING.md's r4
+    analysis of the reference's 500-frame run): the record says whether the
+    kept poses halved it. ``dump``: a path to save the finished scene's
+    poses and both measurement sets in, those scripts' input."""
+    import torch
+    from eacham_tpu_torch.device import to_numpy
+    from eacham_tpu_torch.geometry.se3 import exp_se3
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions
+    from eacham_tpu_torch.sfm.posegraph import (
+        edge_measurements, loop_consistency, loop_pnp_measurements, optimize_pose_graph)
+    from eacham_tpu_torch.sfm.submap import submap_align
+
+    opt = SfmOptions(**LOOP_OPTIONS)
+    g = torch.Generator(device=dev).manual_seed(11)
+    pi = scene.pair_idx.cpu().numpy()
+    span = np.abs(pi[:, 1].astype(np.int64) - pi[:, 0])
+    rows = np.flatnonzero(scene.pair_ok.cpu().numpy() & (span > opt.pair_window))
+    loop_rows = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    sync(dev)
+    t = time.perf_counter()
+    T_loop, w_loop = loop_pnp_measurements(
+        scene.pose, scene.points, scene.lm_valid, scene.kp2lm, scene.keypoints,
+        scene.pair_idx, scene.match_ij, scene.valid_ij, scene.intr, loop_rows, g,
+        px_threshold=opt.max_repr_error, n_hyp=opt.ransac_hyps_pnp)
+    sync(dev)
+    t_measure = time.perf_counter() - t
+    t = time.perf_counter()
+    T_meas, w_meas = edge_measurements(
+        scene.keypoints, scene.pair_idx, scene.pair_ok, scene.match_ij, scene.valid_ij,
+        scene.intr, g, px_threshold=opt.max_repr_error)
+    sync(dev)
+    t_edges = time.perf_counter() - t
+    args = (pi, rows, T_loop, w_loop)
+    err_final = loop_consistency(scene.pose, *args)
+
+    N = scene.pose.shape[0]
+    valid = scene.pose_valid
+    centers = to_numpy(scene.pose)[to_numpy(valid)]
+    centers = -np.einsum("nij,ni->nj", centers[:, :3, :3], centers[:, :3, 3])
+    radius = float(np.median(np.linalg.norm(centers - centers.mean(0), axis=1)))
+    rng = np.random.default_rng(5)
+    d6 = rng.normal(size=6)
+    d6[:3] *= LOOP_DRIFT_ROT / np.linalg.norm(d6[:3])
+    d6[3:] *= LOOP_DRIFT_TRANS * radius / np.linalg.norm(d6[3:])
+    ramp = (np.arange(N) / N) ** 2
+    drift = torch.as_tensor(ramp[:, None] * d6[None], dtype=torch.float32, device=dev)
+    drifted = torch.where(valid[:, None, None], exp_se3(drift) @ scene.pose, scene.pose)
+    err_drift = loop_consistency(drifted, *args)
+    if dump:
+        np.savez(dump, pose=to_numpy(scene.pose), pose_valid=to_numpy(scene.pose_valid),
+                 pose_fixed=to_numpy(scene.pose_fixed), pair_idx=pi, rows=rows,
+                 T_loop=to_numpy(T_loop), w_loop=to_numpy(w_loop), T_meas=to_numpy(T_meas),
+                 w_meas=to_numpy(w_meas), drifted=to_numpy(drifted), gt=poses,
+                 pgo_iters=opt.pgo_iters, submap_size=opt.submap_size)
+        print(f"wrote the loop phase's measurements to {dump}", flush=True)
+    t = time.perf_counter()
+    pose_sub = submap_align(to_numpy(drifted), to_numpy(valid), to_numpy(scene.pose_fixed), pi,
+                            rows, to_numpy(T_loop), to_numpy(w_loop), size=opt.submap_size)
+    t_submap = time.perf_counter() - t
+    err_sub = loop_consistency(pose_sub, *args)
+    submap_kept = bool(err_sub < 0.75 * err_drift)
+    start = torch.as_tensor(pose_sub, device=dev) if submap_kept else drifted
+    err_start = err_sub if submap_kept else err_drift
+    t = time.perf_counter()
+    pose_pg = optimize_pose_graph(
+        start, valid, scene.pose_fixed, pi, T_meas, w_meas,
+        iters=opt.pgo_iters, loop_rows=loop_rows, T_loop=T_loop, w_loop=w_loop)
+    sync(dev)
+    t_pgo = time.perf_counter() - t
+    err_pg = loop_consistency(pose_pg, *args)
+    pgo_kept = bool(np.isfinite(err_pg) and (
+        err_pg < 0.5 * err_start
+        or (submap_kept and err_pg < min(err_start, opt.pgo_min_consistency_deg))))
+    err_kept = err_pg if pgo_kept else err_start
+    rec = {"radius": radius, "drift": d6.tolist(), "submap_kept": submap_kept,
+           "pose_graph_kept": pgo_kept, "halved": bool(err_kept <= 0.5 * err_drift),
+           "loop_rows": int(len(rows)), "live_loop_rows": int((to_numpy(w_loop) >= 30).sum()),
+           "live_edges": int((to_numpy(w_meas) >= 20).sum()),
+           "consistency_deg": {"final": err_final, "drifted": err_drift, "submap": err_sub,
+                               "pose_graph": err_pg, "kept": err_kept},
+           "ate": {"final": _ate(scene.pose, valid, poses), "drifted": _ate(drifted, valid, poses),
+                   "submap": _ate(torch.as_tensor(pose_sub), valid, poses),
+                   "pose_graph": _ate(pose_pg, valid, poses)},
+           "seconds": {"loop_measure": t_measure, "edge_measure": t_edges,
+                       "submap_align": t_submap, "optimize_pose_graph": t_pgo}}
+    print(f"drift repair on {card}: " + json.dumps(rec), flush=True)
+    require(np.isfinite(pose_sub).all() and bool(pose_pg.isfinite().all())
+            and pose_pg.device == scene.pose.device and pose_pg.shape == scene.pose.shape,
+            "a loop solver returned non-finite poses, or the pose graph left the card")
+    require(np.isfinite(err_drift) and err_kept <= err_drift,
+            f"drift repair: the gates kept a less consistent trajectory ({err_drift} -> "
+            f"{err_sub} -> {err_pg} deg)")
+    return rec
 
 
 def dump_scene(path, scene, poses, intr):
@@ -1122,6 +1396,8 @@ def main() -> int:
                     help="also save the classical slice's match tables and ground truth here")
     ap.add_argument("--dump-deep", metavar="NPZ",
                     help="also save the deep path's match tables and ground truth here")
+    ap.add_argument("--dump-loop", metavar="NPZ",
+                    help="also save the loop phase's poses and loop measurements here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1174,7 +1450,9 @@ def main() -> int:
     del scene
     run_cli(images, poses, dev, card)
     _, captured = run_stream(images, poses, intr, dev, card)
-    check_stream_kernel(captured, records[0], card)
+    # window 5's own inputs: the [100, 512, 256] capacity table with the
+    # unarrived rows masked and that window's new pairs, not bucketed
+    check_kernel_at("stream", *captured, records[0], card)
     del captured
 
     models, deep, deep_launches = run_deep(images, intr, dev, card)
@@ -1187,6 +1465,20 @@ def main() -> int:
     deep_layers = models[1].n_layers
     del models, deep
     run_cli(images[:DEEP_CLI_FRAMES], poses, dev, card, deep_layers=deep_layers)
+    del images
+
+    t0 = time.perf_counter()
+    loop_images, loop_poses, loop_intr, workers = render_loop_workload()
+    print(f"rendered {LOOP_FRAMES} frames {WIDTH}x{HEIGHT} of the stress orbit in "
+          f"{time.perf_counter() - t0:.2f} s with {workers} processes (untimed set-up)",
+          flush=True)
+    scene, _, (_, loop_desc, loop_mask), loop_rec = run_loop(
+        loop_images, loop_poses, loop_intr, dev, card)
+    del loop_images
+    check_drift_repair(scene, loop_poses, dev, card, dump=args.dump_loop)
+    check_kernel_at("loop", loop_desc, loop_mask, scene.pair_idx, records[0], card,
+                    launches=loop_rec["match_pairs_launches"], plain_reps=2, profile=False)
+    del scene, loop_desc, loop_mask
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,3 +18,17 @@ cpu``) to run the plain versions on the CPU.
 import eacham_tpu_torch.fp  # noqa: F401  (fp32 matmul/conv policy)
 
 __version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level API, as the reference's: ``run_sfm``, ``resume_sfm``,
+    ``SfmOptions``, ``load_config``, ``SfmConfig``."""
+    if name in ("run_sfm", "resume_sfm", "SfmOptions"):
+        from eacham_tpu_torch import sfm
+
+        return getattr(sfm, name)
+    if name in ("load_config", "SfmConfig"):
+        from eacham_tpu_torch.io import config
+
+        return getattr(config, name)
+    raise AttributeError(name)

@@ -14,7 +14,7 @@ import torch
 
 from eacham_tpu_torch.geometry.camera import pixel_to_normalized, project_hom
 from eacham_tpu_torch.geometry.linalg import orthonormalize_rotation, smallest_eigvec
-from eacham_tpu_torch.geometry.ransac import ransac
+from eacham_tpu_torch.geometry.ransac import ransac, take_rows
 from eacham_tpu_torch.geometry.se3 import exp_se3, hat, rt_to_mat, transform_points
 
 _EPS = 1e-12
@@ -75,8 +75,9 @@ def dlt_pnp(pts3d: torch.Tensor, xy: torch.Tensor, exact: bool = False) -> torch
 
 
 def _reproj_residual_px(T, pts3d, uv, intr):
-    """Pixel reprojection error of ``pts3d`` [N, 3] under ``T`` [..., 4, 4]
-    -> [..., N]; behind-camera points are never inliers."""
+    """Pixel reprojection error of ``pts3d`` [..., N, 3] under ``T``
+    [..., 4, 4] (broadcast) -> [..., N]; behind-camera points are never
+    inliers."""
     pc = transform_points(T[..., None, :, :], pts3d)
     err = torch.linalg.vector_norm(project_hom(pc, intr) - uv, dim=-1)
     return torch.where(pc[..., 2] > 0, err, 1e6)
@@ -85,52 +86,59 @@ def _reproj_residual_px(T, pts3d, uv, intr):
 def gauss_newton_pose(T0: torch.Tensor, pts3d: torch.Tensor, uv: torch.Tensor,
                       intr: torch.Tensor, weights: torch.Tensor,
                       iters: int = 10, damping: float = 1e-6) -> torch.Tensor:
-    """Masked Gauss-Newton refinement of one pose [4, 4] on [N] weighted
-    correspondences: a fixed iteration count, left-multiplicative se(3)
-    updates, analytic Jacobians."""
+    """Masked Gauss-Newton refinement of a pose [..., 4, 4] on [..., N]
+    weighted correspondences (leading axes are independent problems): a
+    fixed iteration count, left-multiplicative se(3) updates, analytic
+    Jacobians."""
     T = T0
     eye3 = torch.eye(3, dtype=T.dtype, device=T.device)
     eye6 = torch.eye(6, dtype=T.dtype, device=T.device)
     fx, fy = intr[0], intr[1]
-    w = weights[:, None, None]
+    w = weights[..., None, None]
     for _ in range(iters):
-        pc = transform_points(T, pts3d)                       # [N, 3]
-        z = torch.clamp(pc[:, 2], min=_EPS)
+        pc = transform_points(T if T.dim() == 2 else T[..., None, :, :], pts3d)   # [..., N, 3]
+        z = torch.clamp(pc[..., 2], min=_EPS)
         inv_z = 1.0 / z
         zeros = torch.zeros_like(z)
-        du = torch.stack([fx * inv_z, zeros, -fx * pc[:, 0] * inv_z * inv_z], dim=-1)
-        dv = torch.stack([zeros, fy * inv_z, -fy * pc[:, 1] * inv_z * inv_z], dim=-1)
-        J_pc = torch.stack([du, dv], dim=-2)                  # [N, 2, 3]
+        du = torch.stack([fx * inv_z, zeros, -fx * pc[..., 0] * inv_z * inv_z], dim=-1)
+        dv = torch.stack([zeros, fy * inv_z, -fy * pc[..., 1] * inv_z * inv_z], dim=-1)
+        J_pc = torch.stack([du, dv], dim=-2)                  # [..., N, 2, 3]
         # d(pc)/d(xi) for a left perturbation: [-[pc]_x | I] (omega, v)
-        dpc = torch.cat([-hat(pc), eye3.expand(pc.shape[0], 3, 3)], dim=-1)   # [N, 3, 6]
-        J = J_pc @ dpc                                        # [N, 2, 6]
-        r = project_hom(pc, intr) - uv                        # [N, 2]
-        JtJ = torch.einsum("nik,nij->kj", J * w, J)
-        Jtr = torch.einsum("nik,ni->k", J * w, r)
+        dpc = torch.cat([-hat(pc), eye3.expand(pc.shape[:-1] + (3, 3))], dim=-1)   # [..., N, 3, 6]
+        J = J_pc @ dpc                                        # [..., N, 2, 6]
+        r = project_hom(pc, intr) - uv                        # [..., N, 2]
+        JtJ = torch.einsum("...nik,...nij->...kj", J * w, J)
+        Jtr = torch.einsum("...nik,...ni->...k", J * w, r)
         dx = -torch.linalg.solve(JtJ + damping * eye6, Jtr)
         T = exp_se3(dx) @ T
     return T
 
 
 def solve_pnp_ransac(
-    pts3d: torch.Tensor,      # [N, 3] world points
-    uv: torch.Tensor,         # [N, 2] pixel observations
-    mask: torch.Tensor,       # [N] bool
+    pts3d: torch.Tensor,      # [..., N, 3] world points
+    uv: torch.Tensor,         # [..., N, 2] pixel observations
+    mask: torch.Tensor,       # [..., N] bool
     intr: torch.Tensor,       # [4]
     threshold: float = 4.0,   # px
     n_hyp: int = 512,
     refine_iters: int = 10,
     generator: torch.Generator | None = None,
-    sample_idx: torch.Tensor | None = None,   # [n_hyp, 6], overrides sampling
+    sample_idx: torch.Tensor | None = None,   # [..., n_hyp, 6], overrides sampling
 ):
-    """Returns (T [4, 4] world->cam, inliers [N] bool, n_inliers)."""
+    """Returns (T [..., 4, 4] world->cam, inliers [..., N] bool, n_inliers
+    [...]). Leading axes are independent problems, solved in one batched
+    RANSAC (the loop-closing measurements take their edges this way)."""
     xy = pixel_to_normalized(uv, intr)
+    batched = mask.dim() > 1
+    # hypotheses get their own axis in front of the point axis
+    pts_h = pts3d[..., None, :, :] if batched else pts3d
+    uv_h = uv[..., None, :, :] if batched else uv
 
     def solver(idx):
-        return dlt_pnp(pts3d[idx], xy[idx])
+        return dlt_pnp(take_rows(pts3d, idx), take_rows(xy, idx))
 
     def residual(T):
-        return _reproj_residual_px(T, pts3d, uv, intr)
+        return _reproj_residual_px(T, pts_h, uv_h, intr)
 
     res = ransac(mask, solver, residual, threshold, n_hyp, 6,
                  generator=generator, sample_idx=sample_idx)
@@ -139,4 +147,4 @@ def solve_pnp_ransac(
                           iters=refine_iters)
     err = _reproj_residual_px(T, pts3d, uv, intr)
     inl = (err < threshold) & mask
-    return T, inl, inl.sum()
+    return T, inl, inl.sum(-1)

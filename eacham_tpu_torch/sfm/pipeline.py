@@ -14,13 +14,22 @@ keeps: PnP gathers 3D-2D correspondences from all registered neighbours of
 the new frame, not only the selected edge (``pnp_pair_only=True`` for the
 old behaviour); next-best-view ties break by match count.
 
+Long trajectories (``pair_window > 0`` with long-range edges surviving):
+after the sweep, the loop-closing stage measures every long-range edge by
+PnP, gates on the loop consistency, and may align rigid submaps and solve
+the pose graph before rebuilding the map (``sfm/posegraph.py``,
+``sfm/submap.py``); the finalization then runs map-refinement rounds
+(rebuild, prune, global BA). ``abs_anchors`` (``sfm/anchors.py``) add
+absolute pose priors to every global BA.
+
 ``resume_sfm`` continues a (checkpointed) scene: the registration sweep
 over the frames still unregistered, then the finalization. With
 ``checkpoint_path`` set, both sweeps save the scene after every
 ``checkpoint_every``-th segment (``io/checkpoint.py``).
 
 Not carried yet, and refused with ``NotImplementedError``: sharding over
-several devices, and the loop-closing / map-rebuild stage of windowed runs.
+several devices. The reference's ``EACHAM_PGO_DUMP`` debug dump of the
+pose-graph inputs is not read.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ import numpy as np
 import torch
 
 from eacham_tpu_torch.ba.core import BAConfig, refine_ba
-from eacham_tpu_torch.device import as_tensor, resolve_device
+from eacham_tpu_torch.device import as_tensor, resolve_device, to_numpy
 from eacham_tpu_torch.geometry.camera import intrinsics_from_image_size
 from eacham_tpu_torch.geometry.pnp import solve_pnp_ransac
 from eacham_tpu_torch.sfm.filtering import prune_observations
@@ -40,10 +49,15 @@ from eacham_tpu_torch.sfm.matches import (
     all_pairs_index, build_match_tables, candidate_pairs, invert_matches,
     observers_of_frame, verify_matches_epipolar,
 )
+from eacham_tpu_torch.sfm.posegraph import (
+    edge_measurements, loop_consistency, loop_pnp_measurements, optimize_pose_graph,
+    rebuild_map,
+)
 from eacham_tpu_torch.sfm.scene import (
     Scene, alloc_landmarks, ba_problem_counts, ba_problem_windowed,
     frame_pair_table, make_scene, scatter_window_points, scatter_window_poses,
 )
+from eacham_tpu_torch.sfm.submap import submap_align
 from eacham_tpu_torch.sfm.triangulate import first_true, triangulate_frame
 from eacham_tpu_torch.sfm.twoview import find_best_pair
 
@@ -356,10 +370,7 @@ def initialize_sfm(
     same epipolar cleanup as the built-in matcher's tables.
     """
     opt = options
-    if opt.n_devices > 1:
-        raise NotImplementedError(
-            "n_devices > 1: sharding over several devices is not ported yet "
-            "(ROADMAP queue 1, item 14: parallel/)")
+    _refuse_unported(opt)
     if match_tables is not None and len(match_tables) not in (3, 6):
         raise ValueError("match_tables is a 3-tuple or a 6-tuple; got "
                          f"{len(match_tables)} entries")
@@ -464,28 +475,20 @@ def _ba_configs(opt: SfmOptions):
     return refine_cfg, global_cfg
 
 
-def _refuse_unported(opt: SfmOptions, n_far: int = 0, loop_closing: bool = True) -> None:
-    """Raise for what a run with these options and ``n_far`` long-range
-    edges would enter and this port does not carry yet (``loop_closing``:
-    the caller has a loop-closing stage, as ``run_sfm`` does and
-    ``resume_sfm`` does not)."""
+def _refuse_unported(opt: SfmOptions) -> None:
+    """Raise for what this port does not carry yet: sharding."""
     if opt.n_devices > 1:
         raise NotImplementedError(
             "n_devices > 1: sharding over several devices is not ported yet "
             "(ROADMAP queue 1, item 14: parallel/)")
-    globally = opt.run_global_ba and opt.global_max_iters > 0
-    windowed_far = opt.pair_window > 0 and n_far > 0
-    if windowed_far and loop_closing and opt.device_loop and opt.loop_close:
-        raise NotImplementedError(
-            f"loop_close with pair_window > 0 and {n_far} long-range edges: the "
-            "pose-graph stage is not ported yet (ROADMAP queue 1, item 12: "
-            "sfm/posegraph.py, submap.py); pass loop_close=False")
-    if globally and (opt.map_refine_rounds > 0
-                     or (opt.map_refine_rounds < 0 and windowed_far)):
-        raise NotImplementedError(
-            f"map_refine_rounds={opt.map_refine_rounds} (pair_window {opt.pair_window}, "
-            f"{n_far} long-range edges): rebuild_map is not ported yet (ROADMAP queue 1, "
-            "item 12: sfm/posegraph.py); pass map_refine_rounds=0")
+
+
+def _n_far(scene: Scene) -> int:
+    """Surviving long-range edges: span above max(N // 4, 30) frames."""
+    N = scene.kp_mask.shape[0]
+    pi_np = scene.pair_idx.cpu().numpy()
+    span = np.abs(pi_np[:, 1].astype(np.int64) - pi_np[:, 0])
+    return int((scene.pair_ok.cpu().numpy() & (span > max(N // 4, 30))).sum())
 
 
 @torch.no_grad()
@@ -511,11 +514,19 @@ def run_sfm(
     [N])`` are optional absolute pose references in the reconstruction's
     frame, used as tight priors by every global BA.
 
+    With ``pair_window > 0`` and long-range edges surviving (span above
+    max(N // 4, 30)), the sweep is followed by the loop-closing stage
+    (``device_loop`` runs only, as in the reference; ``loop_close``) and the
+    finalization by the map-refinement rounds (``map_refine_rounds``; -1
+    picks 3 here and 0 elsewhere).
+
     ``stats``: what ``initialize_sfm`` reports, plus ``registered``,
     ``excluded``, ``landmarks``, the global BA's ``global_ba`` (iterations,
-    initial and final cost; None when it did not run), ``checkpoints``
-    (scene checkpoints written, see ``resume_sfm``), and the wall seconds of
-    ``sweep`` and ``finalize`` beside the earlier stages'.
+    initial and final cost; None when it did not run), ``map_refine`` (one
+    entry per refinement round), ``loop`` (the loop-closing stage, when it
+    ran: see ``_close_loops``), ``checkpoints`` (scene checkpoints written,
+    see ``resume_sfm``), and the wall seconds of ``sweep``, ``loop`` and
+    ``finalize`` beside the earlier stages'.
     """
     opt = options
     _refuse_unported(opt)
@@ -536,11 +547,9 @@ def run_sfm(
     if not stats["initialized"]:
         return scene, stats
 
-    pi_np = scene.pair_idx.cpu().numpy()
-    span = np.abs(pi_np[:, 1].astype(np.int64) - pi_np[:, 0])
-    n_far = int((scene.pair_ok.cpu().numpy() & (span > max(N // 4, 30))).sum())
-    _refuse_unported(opt, n_far)
-    fp_tbl = torch.as_tensor(frame_pair_table(pi_np, N), device=dev)
+    n_far = _n_far(scene)
+    log(f"match graph: {n_far} long-range edges")
+    fp_tbl = torch.as_tensor(frame_pair_table(scene.pair_idx.cpu().numpy(), N), device=dev)
     refine_cfg, global_cfg = _ba_configs(opt)
 
     # ---- incremental loop -----------------------------------------------------
@@ -557,8 +566,15 @@ def run_sfm(
     _sync(dev)
     stats["seconds"]["sweep"] = time.perf_counter() - t
 
+    if opt.device_loop and opt.loop_close and opt.pair_window > 0 and n_far > 0:
+        t = time.perf_counter()
+        scene, stats["loop"] = _close_loops(scene, fp_tbl, generator, opt, n_far, log)
+        _sync(dev)
+        stats["seconds"]["loop"] = time.perf_counter() - t
+
     t = time.perf_counter()
-    scene, final = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors)
+    scene, final = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors,
+                             fp_tbl=fp_tbl, n_loop_edges=n_far)
     _sync(dev)
     stats["seconds"]["finalize"] = time.perf_counter() - t
     stats.update(final, checkpoints=len(written))
@@ -654,10 +670,13 @@ def resume_sfm(
     Returns ``(scene, stats)``: ``registered``, ``landmarks``,
     ``initialized``, ``checkpoints`` (writes made) and the wall ``seconds``
     of ``sweep`` (and ``finalize``), then with ``finalize`` ``excluded``,
-    ``global_ba`` and ``init_pair`` (-1, -1), without it ``finalized``
-    False.
+    ``global_ba``, ``map_refine`` and ``init_pair`` (-1, -1), without it
+    ``finalized`` False. The finalization runs the map-refinement rounds
+    as ``run_sfm``'s does; a resume has no loop-closing stage, as in the
+    reference.
     """
     opt = options
+    _refuse_unported(opt)
     dev = resolve_device(device)
     scene = Scene(*(as_tensor(x, dev) for x in scene))
     N, K = scene.kp_mask.shape
@@ -672,13 +691,9 @@ def resume_sfm(
         log("resume: scene has no initialized pair")
         return scene, {"registered": 0, "landmarks": 0, "initialized": False}
 
-    pi_np = scene.pair_idx.cpu().numpy()
-    span = np.abs(pi_np[:, 1].astype(np.int64) - pi_np[:, 0])
-    n_far = int((scene.pair_ok.cpu().numpy() & (span > max(N // 4, 30))).sum())
-    _refuse_unported(opt, n_far, loop_closing=False)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(opt.seed + 1)
-    fp_tbl = torch.as_tensor(frame_pair_table(pi_np, N), device=dev)
+    fp_tbl = torch.as_tensor(frame_pair_table(scene.pair_idx.cpu().numpy(), N), device=dev)
     refine_cfg, global_cfg = _ba_configs(opt)
     written: list[int] = []
     t = time.perf_counter()
@@ -693,7 +708,8 @@ def resume_sfm(
                        "landmarks": int(scene.lm_valid.sum()), "initialized": True,
                        "finalized": False, "checkpoints": len(written), "seconds": seconds}
     t = time.perf_counter()
-    scene, stats = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors)
+    scene, stats = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors,
+                             fp_tbl=fp_tbl, n_loop_edges=_n_far(scene))
     _sync(dev)
     seconds["finalize"] = time.perf_counter() - t
     stats.update(initialized=True, init_pair=(-1, -1), checkpoints=len(written),
@@ -736,12 +752,135 @@ def _host_loop(scene, excluded, fp_tbl, generator, opt: SfmOptions, refine_cfg, 
     return scene, excluded
 
 
+def _close_loops(scene: Scene, fp_tbl, generator, opt: SfmOptions, n_far: int, log):
+    """The loop-closing stage after the sweep. Returns (scene, stats).
+
+    Every surviving non-window edge (span above ``pair_window``: ladder
+    rungs, retrieval hits, true loop closures) gets a metric PnP
+    measurement against the earlier frame's local map. If the sweep's own
+    loop consistency is above ``pgo_min_consistency_deg`` (otherwise it is
+    at the measurement noise floor and the stage is skipped): above
+    ``submap_align_min_deg`` rigid submaps are aligned first and kept if
+    they cut the consistency below 0.75 of it; then the essential-matrix
+    edge measurements and the frame pose graph, whose solution is accepted
+    if it at least halves the consistency (after an applied submap
+    alignment: if it ends under the noise floor). The map is rebuilt under
+    an accepted solution or applied submaps.
+
+    ``stats``: ``n_far``, ``loop_rows`` (edges measured), ``err0`` (the
+    sweep's consistency, degrees), ``err_submap`` and ``err_pgo`` (None
+    where not run), ``decision`` (``skipped``, ``rejected`` or
+    ``accepted``), ``submap`` (the alignment was applied), ``landmarks``
+    after a rebuild, and the wall ``seconds`` of ``measure``, ``submap``,
+    ``edges``, ``solve`` and ``rebuild``.
+    """
+    N = scene.kp_mask.shape[0]
+    dev = scene.pose.device
+    pi_np = scene.pair_idx.cpu().numpy()
+    span = np.abs(pi_np[:, 1].astype(np.int64) - pi_np[:, 0])
+    rows_np = np.flatnonzero(scene.pair_ok.cpu().numpy() & (span > opt.pair_window))
+    rows = np.concatenate([rows_np, np.full((-len(rows_np)) % 8, -1)])
+    loop_rows = torch.as_tensor(rows, dtype=torch.int32, device=dev)
+    secs = {}
+    st = {"n_far": n_far, "loop_rows": int(len(rows_np)), "err0": None, "err_submap": None,
+          "err_pgo": None, "decision": "skipped", "submap": False, "landmarks": None,
+          "seconds": secs}
+
+    t = time.perf_counter()
+    T_loop, w_loop = loop_pnp_measurements(
+        scene.pose, scene.points, scene.lm_valid, scene.kp2lm, scene.keypoints,
+        scene.pair_idx, scene.match_ij, scene.valid_ij, scene.intr, loop_rows, generator,
+        px_threshold=opt.max_repr_error, n_hyp=opt.ransac_hyps_pnp)
+    err0 = loop_consistency(scene.pose, pi_np, loop_rows, T_loop, w_loop)
+    secs["measure"] = time.perf_counter() - t
+    st["err0"] = err0
+    if not np.isfinite(err0) or err0 <= opt.pgo_min_consistency_deg:
+        log(f"pose graph skipped (loop consistency {err0:.2f} deg is at the measurement "
+            "noise floor)")
+        return scene, st
+    submap_applied = False
+    if err0 > opt.submap_align_min_deg:
+        # drift beyond the frame pose graph's linearization range: align
+        # rigid submaps first (host float64 Sim(3) graph)
+        t = time.perf_counter()
+        pose_sub = submap_align(
+            to_numpy(scene.pose), to_numpy(scene.pose_valid), to_numpy(scene.pose_fixed),
+            pi_np, to_numpy(loop_rows), to_numpy(T_loop), to_numpy(w_loop),
+            size=opt.submap_size)
+        err_sub = loop_consistency(pose_sub, pi_np, loop_rows, T_loop, w_loop)
+        secs["submap"] = time.perf_counter() - t
+        st["err_submap"] = err_sub
+        if np.isfinite(err_sub) and err_sub < 0.75 * err0:
+            scene = scene._replace(pose=torch.as_tensor(pose_sub, device=dev))
+            log(f"submap align: loop consistency {err0:.2f} -> {err_sub:.2f} deg "
+                f"({int(np.ceil(N / opt.submap_size))} submaps)")
+            err0 = err_sub
+            submap_applied = True
+        else:
+            log(f"submap align rejected ({err0:.2f} -> {err_sub:.2f} deg)")
+    t = time.perf_counter()
+    T_meas, w_meas = edge_measurements(
+        scene.keypoints, scene.pair_idx, scene.pair_ok, scene.match_ij, scene.valid_ij,
+        scene.intr, generator, px_threshold=opt.max_repr_error)
+    _sync(dev)
+    secs["edges"] = time.perf_counter() - t
+    t = time.perf_counter()
+    pose_pg = optimize_pose_graph(
+        scene.pose, scene.pose_valid, scene.pose_fixed, pi_np, T_meas, w_meas,
+        iters=opt.pgo_iters, loop_rows=loop_rows, T_loop=T_loop, w_loop=w_loop)
+    err1 = loop_consistency(pose_pg, pi_np, loop_rows, T_loop, w_loop)
+    secs["solve"] = time.perf_counter() - t
+    st["err_pgo"] = err1
+    # a marginal gain near the noise floor means the solve wandered within
+    # the modes the measurements cannot pin: demand at least a halving, or,
+    # after submap alignment, a result under the noise floor
+    accept = bool(np.isfinite(err1) and (
+        err1 < 0.5 * err0
+        or (submap_applied and err1 < min(err0, opt.pgo_min_consistency_deg))))
+    st.update(decision="accepted" if accept else "rejected", submap=submap_applied)
+    if accept:
+        scene = scene._replace(pose=pose_pg)
+    if accept or submap_applied:
+        # corrected poses invalidate the old landmark table
+        t = time.perf_counter()
+        scene = rebuild_map(scene, fp_tbl, opt.max_repr_error, opt.min_tri_angle,
+                            max_observers=opt.max_observers, segment=opt.sweep_segment or 128)
+        _sync(dev)
+        secs["rebuild"] = time.perf_counter() - t
+        st["landmarks"] = int(scene.lm_valid.sum())
+    if accept:
+        log(f"pose graph: {n_far} loop edges closed (consistency {err0:.2f} -> {err1:.2f} "
+            f"deg), map rebuilt ({st['landmarks']} landmarks)")
+    else:
+        log(f"pose graph: correction rejected (loop consistency {err0:.2f} -> {err1:.2f} "
+            f"deg), keeping {'submap-aligned' if submap_applied else 'sweep'} poses")
+    return scene, st
+
+
+def _ba_record(info):
+    """The JSON-ready summary of one BA's info (None when it did not run)."""
+    if info is None:
+        return None
+    return {"iterations": info["iterations"], "initial_cost": float(info["initial_cost"]),
+            "final_cost": float(info["final_cost"])}
+
+
 def _finalize(scene: Scene, excluded, opt: SfmOptions, global_cfg: BAConfig, log,
-              abs_anchors=None):
+              abs_anchors=None, fp_tbl=None, n_loop_edges: int = 0):
     """Prune, global BA, prune, and a second BA when the second prune
-    changed the problem (at least 0.1% of the observations, and 8, removed).
-    Returns (scene, run statistics)."""
+    changed the problem (at least 0.1% of the observations, and 8, removed);
+    then the map-refinement rounds, each a ``rebuild_map`` under the
+    BA-improved poses, a prune and a global BA. ``map_refine_rounds`` -1
+    (AUTO) means 3 rounds for a windowed run (``pair_window > 0``) with
+    long-range edges (``n_loop_edges > 0``) and ``fp_tbl`` given, else 0:
+    the rebuild re-merges the tracks that drift forced apart. Returns
+    (scene, run statistics)."""
+    refine_rounds = opt.map_refine_rounds
+    if refine_rounds < 0:
+        refine_rounds = 3 if (opt.pair_window > 0 and n_loop_edges > 0
+                              and fp_tbl is not None) else 0
     ba_info = None
+    rounds = []
     if opt.run_global_ba and opt.global_max_iters > 0:
         if opt.prune_outliers:
             scene, n_obs, n_lm = prune_observations(scene, opt.max_repr_error)
@@ -749,9 +888,7 @@ def _finalize(scene: Scene, excluded, opt: SfmOptions, global_cfg: BAConfig, log
         scene, info = _ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks,
                           program_iters=opt.ba_program_iters, abs_anchors=abs_anchors)
         if info is not None:
-            ba_info = {"iterations": info["iterations"],
-                       "initial_cost": float(info["initial_cost"]),
-                       "final_cost": float(info["final_cost"]), "second": None}
+            ba_info = {**_ba_record(info), "second": None}
             log(f"global BA: {ba_info['initial_cost']:.1f} -> {ba_info['final_cost']:.1f} "
                 f"({ba_info['iterations']} iters)")
         if opt.prune_outliers and info is not None:
@@ -764,14 +901,34 @@ def _finalize(scene: Scene, excluded, opt: SfmOptions, global_cfg: BAConfig, log
                                    program_iters=opt.ba_program_iters,
                                    abs_anchors=abs_anchors)
                 if info2 is not None:
-                    ba_info["second"] = {"iterations": info2["iterations"],
-                                         "initial_cost": float(info2["initial_cost"]),
-                                         "final_cost": float(info2["final_cost"])}
+                    ba_info["second"] = _ba_record(info2)
                     log(f"global BA 2 (post-prune -{n_obs} obs): "
                         f"{ba_info['second']['initial_cost']:.1f} -> "
                         f"{ba_info['second']['final_cost']:.1f}")
             else:
                 log(f"global BA 2 skipped (prune removed {n_obs} obs of {total_obs})")
+
+        for _ in range(refine_rounds if fp_tbl is not None else 0):
+            dev = scene.pose.device
+            t = time.perf_counter()
+            scene = rebuild_map(scene, fp_tbl, opt.max_repr_error, opt.min_tri_angle,
+                                max_observers=opt.max_observers,
+                                segment=opt.sweep_segment or 128)
+            rebuilt = int(scene.lm_valid.sum())
+            t_rebuild = time.perf_counter() - t
+            t = time.perf_counter()
+            scene, n_obs, _ = prune_observations(scene, opt.max_repr_error)
+            scene, info3 = _ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks,
+                               program_iters=opt.ba_program_iters, abs_anchors=abs_anchors)
+            _sync(dev)
+            rounds.append({"rebuilt_landmarks": rebuilt, "pruned_observations": int(n_obs),
+                           "landmarks": int(scene.lm_valid.sum()), "ba": _ba_record(info3),
+                           "seconds": {"rebuild": t_rebuild, "ba": time.perf_counter() - t}})
+            if info3 is not None:
+                log(f"map refine: rebuilt {rounds[-1]['landmarks']} landmarks "
+                    f"(pruned {int(n_obs)} obs), BA {float(info3['initial_cost']):.1f} -> "
+                    f"{float(info3['final_cost']):.1f}")
     return scene, {"registered": int(scene.pose_valid.sum()),
                    "excluded": int(excluded.sum()),
-                   "landmarks": int(scene.lm_valid.sum()), "global_ba": ba_info}
+                   "landmarks": int(scene.lm_valid.sum()), "global_ba": ba_info,
+                   "map_refine": rounds}

@@ -39,6 +39,8 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
             "eacham_tpu_torch.sfm.device_loop", "eacham_tpu_torch.sfm.pipeline",
             "eacham_tpu_torch.sfm.streaming", "eacham_tpu_torch.cli",
             "eacham_tpu_torch.utils.timer", "eacham_tpu_torch.io",
+            "eacham_tpu_torch.sfm.posegraph", "eacham_tpu_torch.sfm.submap",
+            "eacham_tpu_torch.sfm.anchors",
             *(f"eacham_tpu_torch.io.{m}" for m in (
                 "native_loader", "images", "config", "saver", "nerf", "export",
                 "checkpoint", "stream"))} <= set(mods)
@@ -51,6 +53,23 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         "    importlib.import_module(m)",
         "import chip_smoke",
         "import bench_gpu",
+        # the public surface, as the reference's package exports it
+        "import eacham_tpu_torch as e",
+        "from eacham_tpu_torch.sfm import (run_sfm, resume_sfm, SfmOptions, Scene, make_scene,",
+        "    ba_problem_from_scene, build_match_tables, observers_of_frame,",
+        "    recover_pose_two_view, find_best_pair, triangulate_frame, anchors_in_estimate_frame)",
+        "from eacham_tpu_torch.geometry import (hat, exp_se3, log_se3, retract, inverse_se3,",
+        "    transform_points, camera_center, make_intrinsics, intrinsics_from_image_size,",
+        "    project, project_hom, backproject, pixel_to_normalized, reprojection_error,",
+        "    triangulate_dlt, triangulation_angle, is_positive_depth, triangulate_consensus)",
+        "from eacham_tpu_torch.ba import BAProblem, BAConfig, refine_ba, ba_cost",
+        "from eacham_tpu_torch.utils import align_umeyama, ate_rmse, BlockTimer, print_stats",
+        "from eacham_tpu_torch.features import build_scale_space, match_all_pairs, extract_features",
+        "from eacham_tpu_torch.features.deep import (SuperPointNet, extract_deep,",
+        "    LightGlueMatcher, match_deep)",
+        "assert e.run_sfm is run_sfm and e.resume_sfm is resume_sfm and e.SfmOptions is SfmOptions",
+        "from eacham_tpu_torch.io.config import SfmConfig, load_config",
+        "assert e.SfmConfig is SfmConfig and e.load_config is load_config",
         "print('ok')",
     ])
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

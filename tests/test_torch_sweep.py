@@ -6,10 +6,9 @@ The two packages cannot share RANSAC draws, so they are held to outcomes:
 every frame registered and an ATE under 0.02 (the trajectory is 2.75 long;
 keypoints carry 0.3 px of noise at a focal length of 240). The port's two
 loop forms must agree on the registered count. What the port does not
-carry yet must raise ``NotImplementedError`` naming its ROADMAP item;
-``checkpoint_path`` is carried and writes the scene between segments."""
-
-import dataclasses
+carry yet (sharding) must raise ``NotImplementedError`` naming its ROADMAP
+item; ``checkpoint_path`` is carried and writes the scene between
+segments, and explicit map-refinement rounds run."""
 
 import numpy as np
 import pytest
@@ -150,7 +149,10 @@ def test_sweep_step_limit_segments_and_exclusion(sequence):
 
 
 def test_what_is_not_ported_raises(sequence, tmp_path):
-    uv, dsc, vis, intr, _ = sequence
+    """Sharding raises; checkpoints and the map-refinement rounds are
+    carried (the loop-closing stage, which needs long-range edges, runs in
+    tests/test_torch_loop.py)."""
+    uv, dsc, vis, intr, Ts = sequence
 
     def run(**kw):
         return tpipe.run_sfm(uv, dsc, vis, SIZE, intr=intr, device="cpu",
@@ -158,27 +160,23 @@ def test_what_is_not_ported_raises(sequence, tmp_path):
 
     with pytest.raises(NotImplementedError, match="item 14"):
         run(n_devices=2)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tpipe._refuse_unported(tpipe.SfmOptions(n_devices=4))
     # scene checkpoints are ported: the sweep writes one between segments
     ckpt = tmp_path / "scene.npz"
     scene, stats = run(checkpoint_path=str(ckpt))
     assert stats["registered"] == N_FRAMES and stats["checkpoints"] >= 2 and ckpt.exists()
-    # a windowed run whose long-range edges (span > 30) would enter the
-    # loop-closing stage or the map rebuild
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run(map_refine_rounds=2)
-    far = tpipe.SfmOptions(**{**OPTS, "pair_window": 2})
-    for kw, what in ((dict(loop_close=True, map_refine_rounds=0), "loop_close"),
-                     (dict(loop_close=False, map_refine_rounds=-1), "map_refine_rounds")):
-        with pytest.raises(NotImplementedError, match="item 12") as e:
-            tpipe._refuse_unported(dataclasses.replace(far, **kw), n_far=3)
-        assert what in str(e.value)
-    # with both switched off, or with no long-range edge, the run goes through
-    tpipe._refuse_unported(dataclasses.replace(far, loop_close=False, map_refine_rounds=0),
-                           n_far=3)
-    tpipe._refuse_unported(far, n_far=0)
-    scene, stats = run(pair_window=3, pair_ladder=False, loop_close=False,
-                       map_refine_rounds=0)
+    # explicit map-refinement rounds run, each a rebuild, a prune and a BA
+    scene, stats = run(map_refine_rounds=2)
+    assert stats["registered"] == N_FRAMES and len(stats["map_refine"]) == 2
+    assert all(r["ba"] is not None and r["landmarks"] > 0 for r in stats["map_refine"])
+    valid = scene.pose_valid.numpy()
+    assert trajectory_ate(scene.pose.numpy()[valid], Ts[valid]) < MAX_ATE
+    # a windowed run without long-range edges (span > 30) enters neither the
+    # loop-closing stage nor, by the AUTO rule, the refinement rounds
+    scene, stats = run(pair_window=3, pair_ladder=False)
     assert stats["registered"] == N_FRAMES
+    assert "loop" not in stats and stats["map_refine"] == []
 
 
 def test_run_sfm_refuses_a_missing_card(sequence):
