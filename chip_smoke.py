@@ -81,7 +81,39 @@
    stage entered, three refinement rounds. Then both loop solvers on the
    card's own measurements of the finished scene under a smooth drift ramp
    (the loop consistency must fall to half or less), and the batched
-   matcher at this shape against its plain version (``kernels[0].loop``).
+   matcher at this shape against its plain version (``kernels[0].loop``);
+8. drives the seventh slice's paths (``stereo`` right after the streaming
+   kernel check, so that its profiler session runs early in the process;
+   the others after the loop phase), each printing one JSON line with a
+   ``"phase"`` key, its stage seconds, its ``match_pairs`` launches and the
+   card:
+   - ``parallel``: a process group of one rank over NCCL (``file://``
+     store under ``chiprun_out/parallel``): ``match_all_pairs_sharded`` at
+     the bench's P=5120 and ``refine_ba_sharded`` (and ``_ba`` on the mesh)
+     on the first ``run_sfm`` scene's global problem, equal bits to the
+     unsharded calls required, and ``sync_ranks`` (the scene, ``excluded``
+     and flags broadcast from rank 0) returning rank 0's own state; two
+     ranks on one card cannot share NCCL;
+   - ``stereo`` (scripts/rgbd_recipe.py): the bench's frames as left views,
+     right views 0.1 m along each camera's x axis, one
+     ``features.match_pair`` a frame (kernel 1 at P=1, 100 launches), the
+     row and disparity filter, ``stereo_depth_at_keypoints`` ->
+     ``run_sfm_rgbd``: 101 ``match_pairs`` launches, at least 95 of 100
+     registered, metric ATE (ground truth in frame 0's gauge, nothing
+     fitted) under STEREO_MAX_ATE; ``match_pair`` against the same pair in
+     a batched call (equal bits) and kernel 1 at P=1 against its plain
+     version (``kernels[0].stereo``: a call, the card alone, the bound);
+   - ``api``: ``detect_keypoints`` + ``describe_keypoints`` on frame 0 and
+     ``ClassicalFrontend(512, batch=8)`` on the 100 frames, equal bits to
+     ``extract_features``; ``device_trace`` around one ``match_pair`` call
+     and ``memory_summary``;
+   - ``rgbd``: the same world at TUM RGB-D's 640x480 with its nominal
+     intrinsics and rendered 16-bit depth, written as a TUM directory under
+     ``chiprun_out/rgbd`` -> ``TumDataset`` -> ``extract_features(K=1024)``
+     -> ``depth_at_keypoints`` -> ``run_sfm_rgbd``: one ``match_pairs``
+     launch, at least 95 of 100 registered, metric ATE under RGBD_MAX_ATE;
+     kernel 1 at N=100, Kp=1024, P=5120 against its plain version
+     (``kernels[0].rgbd``).
 
 The phases write what they make under ``chiprun_out/`` (images, configs,
 outputs, checkpoints). ``--dump`` / ``--dump-deep`` also save a path's match tables and
@@ -274,6 +306,10 @@ def profiled_device_ms(fn, name: str, reps: int = 20) -> float:
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == DeviceType.CUDA and name in e.name]
+    if len(us) != reps:
+        kinds = sorted({e.name[:60] for e in prof.events() if e.device_type == DeviceType.CUDA})
+        print(f"profiler: {len(us)} {name} kernels in {reps} calls; device events {kinds}",
+              flush=True)
     require(len(us) == reps, f"the profiler saw {len(us)} {name} kernels in {reps} calls")
     return sum(us) / reps / 1e3
 
@@ -1378,6 +1414,377 @@ def check_drift_repair(scene, poses, dev, card, dump=None):
     return rec
 
 
+# ---- the seventh slice: metric RGB-D and stereo, the sharded paths, the API ------
+
+# scripts/rgbd_recipe.py's TUM RGB-D and rectified stereo recipes on the
+# bench's world; the metric pipeline takes the bench's options with the
+# landmark capacity at its default N * K (scripts/rgbd_reference_jax.py
+# runs the same recipes on the JAX package)
+RGBD_KPS = 1024
+RGBD_OPTIONS = dict(BENCH_OPTIONS, lm_capacity=None)
+# the gate: at least 95 of 100 frames registered and the metric ATE (ground
+# truth in frame 0's gauge, no scale and no rotation fitted) under a limit.
+# The JAX package misses 0.1 on both recipes (scripts/rgbd_reference_jax.py
+# on the CPU, PnP seeds 0-3: rgbd 0.6346, 0.7279, 0.7210, 0.7111; stereo
+# 0.5349, 0.5060, 0.4651, 0.4282): frame-to-frame depth seeding drifts,
+# and the recipe's depth rule gives a fifth of the keypoints a wrong depth.
+# So each limit is 1.5x the largest of the reference's four figures.
+RGBD_MAX_ATE = 1.5 * 0.7279
+STEREO_MAX_ATE = 1.5 * 0.5349
+
+
+def _recipe():
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import rgbd_recipe
+
+    return rgbd_recipe
+
+
+def write_rgbd_workload(R, out: Path):
+    """The TUM recipe's 100 frames and depth maps, written as a TUM
+    directory (untimed set-up). Returns the ground-truth world->cam poses."""
+    from eacham_tpu_torch.utils.synthetic import make_blob_scene, orbit_poses, render_view
+
+    W, H = R.TUM_SIZE
+    blobs = make_blob_scene(np.random.default_rng(0), **R.BLOBS)
+    poses = orbit_poses(R.N_FRAMES, **R.ORBIT)
+    images = np.stack([render_view(blobs, T, R.TUM_INTR, W, H) for T in poses])
+    depths = np.stack([R.noisy_depth(R.render_depth(blobs, T, R.TUM_INTR, W, H), i)
+                       for i, T in enumerate(poses)])
+    R.write_tum(out, images, depths, poses)
+    return poses
+
+
+def _metric_gate(tag, scene, stats, ate, limit, n):
+    require(bool(scene.pose.isfinite().all()) and bool(scene.points[scene.lm_valid].isfinite().all()),
+            f"the {tag} phase left non-finite poses or landmarks")
+    require(stats["registered"] >= n - 5, f"{tag} gate: {stats['registered']} of {n} registered")
+    require(ate < limit, f"{tag} gate: metric ATE {ate}")
+
+
+def run_rgbd(R, dev, card):
+    """The TUM RGB-D deployment once through the port's entry points:
+    ``TumDataset.open`` -> ``load`` -> ``load_depth`` -> ``gt_for_frames`` ->
+    ``extract_features(K=1024)`` -> ``depth_at_keypoints`` -> ``run_sfm_rgbd``,
+    launch counts set to 0 just before and read just after; one JSON line,
+    the gate. Returns (desc, mask, scene, matcher launches) for the kernel
+    check."""
+    import torch
+    from eacham_tpu_torch.features import extract_features
+    from eacham_tpu_torch.io.datasets import TumDataset
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions
+    from eacham_tpu_torch.sfm.rgbd import depth_at_keypoints, run_sfm_rgbd
+
+    out = OUT / "rgbd"
+    t0 = time.perf_counter()
+    write_rgbd_workload(R, out)
+    t_render = time.perf_counter() - t0
+    sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ds = TumDataset.open(out)
+    batch = ds.load()
+    depth, has = ds.load_depth()
+    gt_c2w, gt_ok = ds.gt_for_frames()
+    t_load = time.perf_counter() - t0
+    t = time.perf_counter()
+    xy, desc, _, mask = extract_features(batch.images, max_keypoints=RGBD_KPS, device=dev)
+    sync(dev)
+    t_extract = time.perf_counter() - t
+    t = time.perf_counter()
+    kp_z = depth_at_keypoints(depth, xy, device=dev)
+    sync(dev)
+    t_depth = time.perf_counter() - t
+    scene, stats = run_sfm_rgbd(xy, desc, mask, kp_z, R.TUM_INTR,
+                                options=SfmOptions(**RGBD_OPTIONS), verbose=False, device=dev)
+    sync(dev)
+    total = time.perf_counter() - t0
+    launches = launch_counts()
+    valid = scene.pose_valid.cpu().numpy()
+    ate = R.metric_ate(scene.pose.cpu().numpy(), np.linalg.inv(gt_c2w), valid)
+    live_z = float(((kp_z > 0) & mask).sum() / mask.sum())
+    rec = {"phase": "rgbd", "card": card, "frames": len(batch.names),
+           "size": list(R.TUM_SIZE), "max_keypoints": RGBD_KPS, "decoder": batch.backend,
+           "seconds": dict(render_untimed=t_render, load=t_load, extract=t_extract,
+                           depth=t_depth, **stats["seconds"], total=total),
+           "frames_per_s": len(batch.names) / total, "depth_frames": int(has.sum()),
+           "gt_frames": int(gt_ok.sum()), "keypoints_with_depth": live_z,
+           "registered": stats["registered"], "landmarks": stats["landmarks"],
+           "metric_ate": ate, "global_ba": stats["global_ba"],
+           "match_pairs_launches": launches["match_pairs"]}
+    print(json.dumps(rec), flush=True)
+    require(batch.images.shape == (N_FRAMES, R.TUM_SIZE[1], R.TUM_SIZE[0]), batch.images.shape)
+    require(bool(has.all()) and bool(gt_ok.all()), "a frame lost its depth or ground truth")
+    require(launches["match_pairs"] == 1,
+            f"the rgbd phase launched the matcher {launches['match_pairs']} times, not once")
+    _metric_gate("rgbd", scene, stats, ate, RGBD_MAX_ATE, N_FRAMES)
+    import shutil
+
+    for d in ("rgb", "depth"):          # the passed phase's frames and depth maps
+        shutil.rmtree(out / d, ignore_errors=True)
+    return desc, mask, scene, launches["match_pairs"]
+
+
+def run_stereo(R, images, poses, intr, dev, card):
+    """The rectified stereo deployment once: the bench's 100 frames as left
+    views, right views ``STEREO_BASELINE`` along each camera's x axis, both
+    through ``extract_features(K=512)``, one ``features.match_pair(left,
+    right)`` a frame (kernel 1 at P=1), the row and disparity filter,
+    ``stereo_depth_at_keypoints`` -> ``run_sfm_rgbd``; launch counts set to
+    0 just before and read just after the stereo pairs and after the run.
+    Returns what the kernel checks need, with the stereo pairs' launches."""
+    import torch
+    from eacham_tpu_torch.features import extract_features, match_pair
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions
+    from eacham_tpu_torch.sfm.rgbd import run_sfm_rgbd, stereo_depth_at_keypoints
+    from eacham_tpu_torch.utils.synthetic import make_blob_scene, render_view
+
+    t0 = time.perf_counter()
+    blobs = make_blob_scene(np.random.default_rng(0), **R.BLOBS)
+    right = np.stack([render_view(blobs, R.right_pose(T), intr, WIDTH, HEIGHT) for T in poses])
+    t_render = time.perf_counter() - t0
+    sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xy, desc, _, mask = extract_features(images, max_keypoints=MAX_KPS, device=dev)
+    xr, dr, _, mr = extract_features(right, max_keypoints=MAX_KPS, device=dev)
+    sync(dev)
+    t_extract = time.perf_counter() - t0
+    t = time.perf_counter()
+    right_x = torch.zeros_like(xy[..., 0])
+    keep = torch.zeros_like(mask)
+    for i in range(N_FRAMES):
+        j, v = match_pair(desc[i], dr[i], mask[i], mr[i], ratio=BENCH_OPTIONS["match_ratio"])
+        matched = xr[i][j.long()]
+        keep[i] = R.stereo_keep(xy[i], matched, v)
+        right_x[i] = matched[:, 0]
+    sync(dev)
+    t_match = time.perf_counter() - t
+    pair_launches = launch_counts()["match_pairs"]
+    kp_z = stereo_depth_at_keypoints(xy, right_x, intr, R.STEREO_BASELINE, device=dev) * keep
+    scene, stats = run_sfm_rgbd(xy, desc, mask, kp_z, intr,
+                                options=SfmOptions(**RGBD_OPTIONS), verbose=False, device=dev)
+    sync(dev)
+    total = time.perf_counter() - t0
+    launches = launch_counts()
+    valid = scene.pose_valid.cpu().numpy()
+    ate = R.metric_ate(scene.pose.cpu().numpy(), poses, valid)
+    rec = {"phase": "stereo", "card": card, "frames": N_FRAMES, "size": [WIDTH, HEIGHT],
+           "max_keypoints": MAX_KPS, "baseline": R.STEREO_BASELINE,
+           "seconds": dict(render_right_untimed=t_render, extract_both=t_extract,
+                           stereo_match=t_match, **stats["seconds"], total=total),
+           "stereo_matches_per_frame": float(keep.sum(1).float().mean()),
+           "registered": stats["registered"], "landmarks": stats["landmarks"],
+           "metric_ate": ate, "global_ba": stats["global_ba"],
+           "match_pairs_launches": launches["match_pairs"],
+           "stereo_pair_launches": pair_launches,
+           "match_pair_launches": launches["match_pair"]}
+    print(json.dumps(rec), flush=True)
+    require(pair_launches == N_FRAMES and launches["match_pairs"] == N_FRAMES + 1
+            and launches["match_pair"] == 0,
+            f"the stereo phase's launches {launches}: want {N_FRAMES + 1} of match_pairs "
+            "(one a stereo pair, one for the match graph) and none of match_pair")
+    require(int(keep.sum(1).min()) >= 20, "a frame has fewer than 20 stereo matches")
+    _metric_gate("stereo", scene, stats, ate, STEREO_MAX_ATE, N_FRAMES)
+    return desc, mask, dr, mr, scene, pair_launches
+
+
+def check_match_pair_padding(desc, dr, mask, mr):
+    """``match_pair`` on two sets of different size (K1=200, K2=150 of the
+    512 slots of frame 0's left and right features, so its table pads to
+    Kp=256) must give the same bits as the same pair inside the batched call
+    on the full two-row table (Kp=512, the cut slots masked): padding moves
+    neither the quantization nor the live lanes' indices."""
+    import torch
+    from eacham_tpu_torch.features import match_all_pairs, match_pair
+
+    K1, K2 = 200, 150
+    m1, m2 = mask[0].clone(), mr[0].clone()
+    m1[K1:], m2[K2:] = False, False
+    j, v = match_pair(desc[0, :K1], dr[0, :K2], m1[:K1], m2[:K2])
+    table = torch.stack([desc[0], dr[0]])
+    jb, vb, _ = match_all_pairs(table, torch.stack([m1, m2]),
+                                torch.tensor([[0, 1]], dtype=torch.int32, device=desc.device),
+                                min_matches=0)
+    same = bool(torch.equal(v, vb[0, :K1])) and bool(torch.equal(j[v], jb[0, :K1][v]))
+    print(f"match_pair padding check (K1={K1}, K2={K2}, Kp 256 against 512): "
+          f"{int(v.sum())} matches, equal to the batched call's: {same}", flush=True)
+    require(same and int(v.sum()) > 0, "match_pair differs from the same pair in a batched call")
+
+
+def check_stereo_kernel(desc, mask, dr, mr, launches, record, card):
+    """Kernel 1 at the stereo phase's P=1 shape (frame 0's left and right
+    features as the two-row table ``match_pair`` builds): held against its
+    plain version (three runs with equal bits), a call's time, the card's
+    time alone under the profiler, the bound; and one call of the public
+    ``match_pair`` itself."""
+    import torch
+    from eacham_tpu_torch.features import match_pair
+
+    table = torch.stack([desc[0], dr[0]])
+    tmask = torch.stack([mask[0], mr[0]])
+    pair = torch.tensor([[0, 1]], dtype=torch.int32, device=desc.device)
+    check_kernel_at("stereo", table, tmask, pair, record, card, launches=launches)
+    call_ms = cuda_ms(lambda: match_pair(desc[0], dr[0], mask[0], mr[0]), reps=50)
+    rec = record["stereo"]
+    rec["match_pair_call_ms"] = call_ms
+    host = 1.0 - rec["device_ms"] / call_ms
+    print(f"match_pair (P=1) on {card}: {call_ms:.4f} ms a call of the public entry point "
+          f"(mean of 50), {rec['ms']:.4f} ms a call of the kernel's wrapper, "
+          f"{rec['device_ms']:.4f} ms on the card alone: the host's share of a call "
+          f"{host:.3f}", flush=True)
+
+
+def run_parallel(desc, mask, scene, dev, card):
+    """The sharded paths on the one card: a process group of one rank over
+    NCCL (a ``file://`` store under chiprun_out/), then the bench's P=5120
+    match through ``match_all_pairs_sharded`` against ``match_all_pairs``,
+    and the first ``run_sfm`` scene's global BA through
+    ``refine_ba_sharded`` and through ``_ba`` on the mesh (its scene state
+    broadcast) against the unsharded calls, all with equal bits required
+    (deterministic algorithms on for the comparison: ``index_add_``'s float
+    atomics would differ from run to run otherwise). Two ranks on one card
+    cannot share NCCL; the two-rank logic is held by the CPU gloo tests."""
+    import torch
+    import torch.distributed as dist
+    from eacham_tpu_torch.features import match_all_pairs
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+    from eacham_tpu_torch.parallel import (
+        init_distributed, make_mesh, match_all_pairs_sharded, refine_ba_sharded)
+    from eacham_tpu_torch.sfm import pipeline as pl
+    from eacham_tpu_torch.sfm.matches import all_pairs_index, bucket_pairs
+    from eacham_tpu_torch.sfm.scene import ba_problem_counts, ba_problem_windowed
+    from eacham_tpu_torch.ba.core import refine_ba
+
+    out = OUT / "parallel"
+    out.mkdir(parents=True, exist_ok=True)
+    store = out / "store"
+    store.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    multi = init_distributed(f"file://{store}", 1, 0, device=dev)
+    mesh = make_mesh(1, device=dev)
+    t_init = time.perf_counter() - t0
+    backend = dist.get_backend()
+    require(not multi and mesh.group is not None
+            and backend == ("nccl" if dev.type == "cuda" else "gloo"),
+            f"process group: multi {multi}, backend {backend}")
+    opt = pl.SfmOptions(**BENCH_OPTIONS)
+    pairs = torch.as_tensor(bucket_pairs(all_pairs_index(desc.shape[0])), device=dev)
+    sync(dev)
+    reset_launch_counts()
+    t = time.perf_counter()
+    sharded = match_all_pairs_sharded(desc, mask, pairs, mesh, ratio=opt.match_ratio,
+                                      min_matches=opt.min_matches)
+    sync(dev)
+    t_match = time.perf_counter() - t
+    launches = launch_counts()
+    single = match_all_pairs(desc, mask, pairs, ratio=opt.match_ratio,
+                             min_matches=opt.min_matches)
+    match_equal = all(bool(torch.equal(a, b)) for a, b in zip(sharded, single))
+
+    _, global_cfg = pl._ba_configs(opt)
+    N, K = scene.kp_mask.shape
+    n_obs, n_lms = torch.stack(ba_problem_counts(scene, scene.pose_valid)).tolist()
+    prob = ba_problem_windowed(scene, scene.pose_valid, max_cams=N,
+                               max_obs=pl._bucket(n_obs, N * K),
+                               max_lms=pl._bucket(n_lms, scene.lm_capacity))[0]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a = refine_ba(prob, global_cfg)
+        sync(dev)
+        t = time.perf_counter()
+        b = refine_ba_sharded(prob, global_cfg, mesh)
+        sync(dev)
+        t_ba = time.perf_counter() - t
+        c = refine_ba(prob, global_cfg)
+        s1, i1 = pl._ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks)
+        s2, i2 = pl._ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks, mesh=mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = lambda x, y: all(bool(torch.equal(u, v)) for u, v in zip(x[:3], y[:3]))
+    ba_equal, repeat_equal = same(a, b), same(a, c)
+    pipe_equal = (bool(torch.equal(s1.pose, s2.pose)) and bool(torch.equal(s1.points, s2.points))
+                  and i1["iterations"] == i2["iterations"])
+    # the ranks' meeting point of the replicated stages (the whole scene,
+    # ``excluded`` and two flags) over NCCL: rank 0 of one gets its own back
+    excluded = scene.pose_valid.logical_not()
+    s3, ex3, flags = pl.sync_ranks(mesh, scene, excluded, 7, 1, fields=type(scene)._fields)
+    sync_equal = (all(bool(torch.equal(u, v)) for u, v in zip(scene, s3))
+                  and bool(torch.equal(ex3, excluded)) and flags == [7, 1])
+    dist.destroy_process_group()
+    rec = {"phase": "parallel", "card": card, "backend": backend, "world_size": 1,
+           "pairs": int(pairs.shape[0]), "ba_observations": int(prob.obs_cam.shape[0]),
+           "ba_iterations": b[3]["iterations"],
+           "seconds": {"init_distributed": t_init, "match_sharded": t_match,
+                       "refine_ba_sharded": t_ba},
+           "match_equal": match_equal, "refine_ba_equal": ba_equal,
+           "refine_ba_repeat_equal": repeat_equal, "pipeline_ba_equal": pipe_equal,
+           "sync_ranks_equal": sync_equal, "match_pairs_launches": launches["match_pairs"]}
+    print(json.dumps(rec), flush=True)
+    require(launches["match_pairs"] == 1, f"the sharded match launched {launches}")
+    require(match_equal, "match_all_pairs_sharded differs from match_all_pairs")
+    require(ba_equal and pipe_equal,
+            f"the sharded BA differs from the unsharded one (a repeat of the unsharded "
+            f"one is equal: {repeat_equal})")
+    require(sync_equal, "sync_ranks over NCCL changed rank 0's own state")
+
+
+def run_api(images, dev, card):
+    """The public per-image frontend and the utilities on the card:
+    ``detect_keypoints`` + ``describe_keypoints`` on frame 0 against
+    ``extract_features`` on the same frame, ``ClassicalFrontend(512,
+    batch=8)`` on the 100 frames against ``extract_features`` on them (equal
+    bits required), ``device_trace`` around one ``match_pair`` call (a trace
+    file with device activity) and ``memory_summary`` naming the card."""
+    import torch
+    from eacham_tpu_torch.features import (
+        ClassicalFrontend, describe_keypoints, detect_keypoints, extract_features, match_pair)
+    from eacham_tpu_torch.utils import device_trace, memory_summary
+
+    t0 = time.perf_counter()
+    xy0, sidx0, score0, m0 = detect_keypoints(images[0], max_keypoints=MAX_KPS, device=dev)
+    d0 = describe_keypoints(images[0], xy0, sidx0, m0, device=dev)
+    sync(dev)
+    t_single = time.perf_counter() - t0
+    one = extract_features(images[:1], max_keypoints=MAX_KPS, device=dev)
+    per_image_equal = all(bool(torch.equal(a, b[0])) for a, b in zip((xy0, d0, score0, m0),
+                                                                       (one[0], one[1], one[2], one[3])))
+    t0 = time.perf_counter()
+    front = ClassicalFrontend(max_keypoints=MAX_KPS, batch=8, device=dev)(images)
+    sync(dev)
+    t_front = time.perf_counter() - t0
+    whole = extract_features(images, max_keypoints=MAX_KPS, device=dev)
+    front_equal = all(bool(torch.equal(a, b)) for a, b in zip(front, whole))
+    batch_equal = all(bool(torch.equal(a, b[0])) for a, b in zip((xy0, d0, score0, m0),
+                                                                  (whole[0], whole[1], whole[2],
+                                                                   whole[3])))
+    trace_dir = OUT / "api" / "trace"
+    with device_trace(trace_dir):
+        match_pair(whole[1][0], whole[1][1], whole[3][0], whole[3][1])
+    traces = sorted(trace_dir.glob("trace-*.json"))
+    trace_kernels = 0
+    if traces:
+        events = json.loads(traces[-1].read_text()).get("traceEvents", [])
+        trace_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    mem = memory_summary()
+    rec = {"phase": "api", "card": card,
+           "seconds": {"detect_describe_frame0": t_single, "classical_frontend_100": t_front},
+           "per_image_equals_extract_features": per_image_equal,
+           "per_image_equals_batched_frame0": batch_equal,
+           "classical_frontend_equals_extract_features": front_equal,
+           "trace_files": len(traces), "trace_kernel_events": trace_kernels,
+           "memory_summary": mem}
+    print(json.dumps(rec), flush=True)
+    require(per_image_equal, "detect/describe_keypoints differ from extract_features on frame 0")
+    require(front_equal, "ClassicalFrontend differs from extract_features")
+    require(len(traces) == 1 and trace_kernels > 0, "device_trace wrote no trace with kernels")
+    require(torch.cuda.get_device_name(0) in mem, f"memory_summary does not name the card: {mem}")
+    for f in traces:
+        f.unlink()
+
+
 def dump_scene(path, scene, poses, intr):
     """Save the seeded scene's match tables for scripts/init_pair_spread_*.py."""
     t = {k: getattr(scene, k).cpu().numpy() for k in (
@@ -1442,18 +1849,28 @@ def main() -> int:
     # are printed whatever those checks find
     records = [check_match_kernel(desc, mask, launches, card)]
     check_slice(xy, desc, mask, scene, stats, launches, poses)
-    del xy, desc, mask, scene
+    del xy, scene
 
-    for run in range(2):
-        scene, _ = run_full(images, intr, poses, dev, card, run)
-    run_resume(scene, poses, dev, card)
-    del scene
+    scenes = [run_full(images, intr, poses, dev, card, run)[0] for run in range(2)]
+    run_resume(scenes[1], poses, dev, card)
     run_cli(images, poses, dev, card)
     _, captured = run_stream(images, poses, intr, dev, card)
     # window 5's own inputs: the [100, 512, 256] capacity table with the
     # unarrived rows masked and that window's new pairs, not bucketed
     check_kernel_at("stream", *captured, records[0], card)
     del captured
+    # rectified stereo on the bench's frames (the seventh slice). Its kernel
+    # check's profiler session follows the stream's closely: in a process
+    # that has run a profiler session and then minutes of unprofiled work
+    # (the later phases), the profiler has dropped kernel records of later
+    # sessions (17-19 of 20 calls, whichever check it was).
+    R = _recipe()
+    left_desc, left_mask, right_desc, right_mask, _, stereo_launches = run_stereo(
+        R, images, poses, intr, dev, card)
+    check_match_pair_padding(left_desc, right_desc, left_mask, right_mask)
+    check_stereo_kernel(left_desc, left_mask, right_desc, right_mask, stereo_launches,
+                        records[0], card)
+    del left_desc, left_mask, right_desc, right_mask
 
     models, deep, deep_launches = run_deep(images, intr, dev, card)
     if args.dump_deep:
@@ -1465,7 +1882,6 @@ def main() -> int:
     deep_layers = models[1].n_layers
     del models, deep
     run_cli(images[:DEEP_CLI_FRAMES], poses, dev, card, deep_layers=deep_layers)
-    del images
 
     t0 = time.perf_counter()
     loop_images, loop_poses, loop_intr, workers = render_loop_workload()
@@ -1479,6 +1895,19 @@ def main() -> int:
     check_kernel_at("loop", loop_desc, loop_mask, scene.pair_idx, records[0], card,
                     launches=loop_rec["match_pairs_launches"], plain_reps=2, profile=False)
     del scene, loop_desc, loop_mask
+
+    # the rest of the seventh slice: the sharded paths on the first run_sfm
+    # scene, the public frontend API (its trace is only required to hold
+    # kernels), TUM RGB-D (no profiler session)
+    run_parallel(desc, mask, scenes[0], dev, card)
+    del desc, mask, scenes
+    run_api(images, dev, card)
+    del images
+    rgbd_desc, rgbd_mask, rgbd_scene, rgbd_launches = run_rgbd(R, dev, card)
+    # (a launch of 6 ms: the warm mean is the card's time, as at the loop shape)
+    check_kernel_at("rgbd", rgbd_desc, rgbd_mask, rgbd_scene.pair_idx, records[0], card,
+                    launches=rgbd_launches, plain_reps=2, profile=False)
+    del rgbd_desc, rgbd_mask, rgbd_scene
 
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,13 +6,17 @@ code is PyTorch; the Pallas kernels of the reference become hand-written
 CUDA kernels under ``csrc/`` (built with nvcc at first use), each with a
 plain PyTorch version beside it.
 
-Entry points (``features.frontend.extract_features``,
-``features.deep.frontend.load_frontend_params`` / ``extract_deep_batch`` /
-``build_match_tables_deep``, ``sfm.pipeline.initialize_sfm`` / ``run_sfm`` /
-``resume_sfm``, ``sfm.streaming.StreamingReconstructor``,
-``io.checkpoint.load_scene`` and the command line ``cli``) run on the card
-by default and raise when there is none; pass ``device="cpu"`` (``--device
-cpu``) to run the plain versions on the CPU.
+Entry points (``features.frontend.extract_features`` and
+``ClassicalFrontend``, ``features.detect_keypoints`` /
+``describe_keypoints``, ``features.deep.frontend.load_frontend_params`` /
+``extract_deep_batch`` / ``build_match_tables_deep``,
+``sfm.pipeline.initialize_sfm`` / ``run_sfm`` / ``resume_sfm``,
+``sfm.rgbd.run_sfm_rgbd`` / ``depth_at_keypoints`` /
+``stereo_depth_at_keypoints``, ``sfm.streaming.StreamingReconstructor``,
+``io.checkpoint.load_scene``, ``parallel.init_distributed`` /
+``make_mesh`` and the command line ``cli``) run on the card by default and
+raise when there is none; pass ``device="cpu"`` (``--device cpu``) to run
+the plain versions on the CPU.
 """
 
 import eacham_tpu_torch.fp  # noqa: F401  (fp32 matmul/conv policy)

@@ -29,6 +29,13 @@ from run to run in their last bits.
 Everything is fp32 (TF32 off, see ``eacham_tpu_torch.fp``). The LM loop is a
 host loop; its state stays on the device, the accept step is a
 ``torch.where``, and the host reads one flag per iteration.
+
+Sharded observations (``parallel/ba.py``): given a ``torch.distributed``
+process group, each rank holds a slice of the observation axis and every
+sum over observations (segment sums, the cost, the intrinsics block) is
+completed by an ``all_reduce`` over the group; poses, points and priors are
+replicated, so every rank computes the same LM trajectory. Without a group
+nothing changes.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from eacham_tpu_torch.geometry.linalg import inv3x3
 from eacham_tpu_torch.geometry.se3 import exp_se3, inverse_se3, log_se3
@@ -203,16 +211,25 @@ def _prior_terms(poses, points, intr, p: BAProblem, anchors, cfg: BAConfig):
     return (r_pose, j_pose), (r_pt, j_pt), (r_k, j_k), (r_abs, j_abs)
 
 
-def _seg_outer(J1, J2, idx, n):
+def _reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``x`` over the observation shards of ``group`` (in place; the
+    identity without a group). This is the whole communication of the
+    sharded BA: each rank's partial sums become the full ones."""
+    if group is not None:
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
+
+
+def _seg_outer(J1, J2, idx, n, group=None):
     """sum over observations of J1^T J2 per segment: [O, 2, a], [O, 2, b] -> [n, a, b]."""
     out = J1.new_zeros((n, J1.shape[2], J2.shape[2]))
-    return out.index_add_(0, idx, torch.einsum("oki,okj->oij", J1, J2))
+    return _reduce(out.index_add_(0, idx, torch.einsum("oki,okj->oij", J1, J2)), group)
 
 
-def _seg_vec(J, t, idx, n):
+def _seg_vec(J, t, idx, n, group=None):
     """sum over observations of J^T t per segment: [O, 2, a], [O, 2] -> [n, a]."""
     out = J.new_zeros((n, J.shape[2]))
-    return out.index_add_(0, idx, torch.einsum("oki,ok->oi", J, t))
+    return _reduce(out.index_add_(0, idx, torch.einsum("oki,ok->oi", J, t)), group)
 
 
 def _huber_rho(n, k):
@@ -220,7 +237,7 @@ def _huber_rho(n, k):
 
 
 def ba_cost(poses, points, intr, p: BAProblem, anchors=None,
-            cfg: BAConfig = BAConfig()) -> torch.Tensor:
+            cfg: BAConfig = BAConfig(), group=None) -> torch.Tensor:
     """Total robust cost 0.5 * sum(rho(r)), a 0-d tensor."""
     _, pc = _camera_points(poses, points, p)
     z = pc[:, 2]
@@ -231,7 +248,7 @@ def ba_cost(poses, points, intr, p: BAProblem, anchors=None,
     r = (torch.stack([u, v], -1) - p.obs_uv) / PX_SIGMA
     rn = torch.linalg.vector_norm(r, dim=-1)
     rn = torch.where(z > 1e-4, rn, 2.0 * PX_HUBER + 100.0)    # behind the camera: big
-    cost = torch.where(good, _huber_rho(rn, PX_HUBER), 0.0).sum()
+    cost = _reduce(torch.where(good, _huber_rho(rn, PX_HUBER), 0.0).sum(), group)
     if anchors is not None:
         (r_pose, _), (r_pt, _), (r_k, _), (r_abs, _) = _prior_terms(
             poses, points, intr, p, anchors, cfg)
@@ -253,7 +270,15 @@ def _damp(M, lam, on=None):
     return out
 
 
-def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam):
+def _point_prior_block(j_pt: torch.Tensor) -> torch.Tensor:
+    """The point prior's share of each point's [3, 3] block: j^2 on the
+    diagonal, as its gradient and cost take it. The reference adds j^2 to
+    all nine entries (eacham_tpu/ba/core.py:386, :492, where the scale is one
+    number a point); the port keeps the consistent block (ROADMAP §3)."""
+    return torch.diag_embed(j_pt * j_pt)
+
+
+def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam, group=None):
     """Blocks of the linearized system shared by both Schur solvers."""
     N = p.poses.shape[0]
     L = p.points.shape[0]
@@ -263,12 +288,12 @@ def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam):
     cam_w = cam_upd[:, None].to(r.dtype)      # [N, 1]
     pt_w = p.pt_in_ba[:, None].to(r.dtype)
 
-    U_obs = _seg_outer(Jc, Jc, p.obs_cam, N)                       # [N, 6, 6]
-    V_obs = _seg_outer(Jp, Jp, p.obs_pt, L)                        # [L, 3, 3]
-    Ukk_obs = torch.einsum("oki,okj->ij", Jk, Jk)                  # [2, 2]
+    U_obs = _seg_outer(Jc, Jc, p.obs_cam, N, group)                # [N, 6, 6]
+    V_obs = _seg_outer(Jp, Jp, p.obs_pt, L, group)                 # [L, 3, 3]
+    Ukk_obs = _reduce(torch.einsum("oki,okj->ij", Jk, Jk), group)  # [2, 2]
 
     U = _damp(U_obs + torch.diag_embed(j_pose * j_pose + j_abs * j_abs), lam, cam_upd)
-    V = _damp(V_obs + torch.diag_embed(j_pt * j_pt), lam, p.pt_in_ba)
+    V = _damp(V_obs + _point_prior_block(j_pt), lam, p.pt_in_ba)
     Ukk = _damp(Ukk_obs + torch.diag(j_k * j_k), lam)
 
     # the implicit operator applies the observation part through segment
@@ -279,16 +304,16 @@ def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam):
 
     Vinv = inv3x3(V)                                               # [L, 3, 3]
 
-    b_c = (-_seg_vec(Jc, r, p.obs_cam, N) - r_pose * j_pose - r_abs * j_abs) * cam_w
-    b_p = (-_seg_vec(Jp, r, p.obs_pt, L) - r_pt * j_pt) * pt_w
-    b_k = -torch.einsum("oki,ok->i", Jk, r) - r_k * j_k
+    b_c = (-_seg_vec(Jc, r, p.obs_cam, N, group) - r_pose * j_pose - r_abs * j_abs) * cam_w
+    b_p = (-_seg_vec(Jp, r, p.obs_pt, L, group) - r_pt * j_pt) * pt_w
+    b_k = -_reduce(torch.einsum("oki,ok->i", Jk, r), group) - r_k * j_k
 
     # reduced right-hand side: b~ = b_cams - W V^-1 b_p
     h = torch.einsum("lij,lj->li", Vinv, b_p)                      # [L, 3]
     t = torch.einsum("oki,oi->ok", Jp, h[p.obs_pt])                # [O, 2]
-    b_red_c = b_c - _seg_vec(Jc, t, p.obs_cam, N) * cam_w
-    b_red_k = b_k - torch.einsum("oki,ok->i", Jk, t)
-    return dict(N=N, L=L, cam_upd=cam_upd, cam_w=cam_w, pt_w=pt_w,
+    b_red_c = b_c - _seg_vec(Jc, t, p.obs_cam, N, group) * cam_w
+    b_red_k = b_k - _reduce(torch.einsum("oki,ok->i", Jk, t), group)
+    return dict(N=N, L=L, group=group, cam_upd=cam_upd, cam_w=cam_w, pt_w=pt_w,
                 U=U, V=V, Ukk=Ukk, Vinv=Vinv,
                 extra_diag_c=extra_diag_c, extra_diag_k=extra_diag_k,
                 b_c=b_c, b_p=b_p, b_k=b_k, b_red_c=b_red_c, b_red_k=b_red_k)
@@ -297,11 +322,12 @@ def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam):
 def _back_substitute(d_cam, d_k, blk, Jc, Jp, Jk, p: BAProblem):
     """Landmark updates given the camera and intrinsics updates."""
     t = torch.einsum("okj,oj->ok", Jc, d_cam[p.obs_cam]) + Jk @ d_k
-    g = blk["b_p"] - _seg_vec(Jp, t, p.obs_pt, blk["L"])
+    g = blk["b_p"] - _seg_vec(Jp, t, p.obs_pt, blk["L"], blk["group"])
     return torch.einsum("lij,lj->li", blk["Vinv"], g) * blk["pt_w"]
 
 
-def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig):
+def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
+                       group=None):
     """One linear solve through the materialized reduced camera system.
 
     Scatters W = [L, N, 6, 3] in one ``index_add_``, forms S = U - W V^-1
@@ -310,7 +336,7 @@ def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig):
     sequential operator applications.
     Returns (d_cam [N, 6], d_k [2], d_pt [L, 3]).
     """
-    blk = _blocks(r, Jc, Jp, Jk, priors, p, lam)
+    blk = _blocks(r, Jc, Jp, Jk, priors, p, lam, group)
     N, L = blk["N"], blk["L"]
     cam_w, Vinv = blk["cam_w"], blk["Vinv"]
     n6 = 6 * N
@@ -318,10 +344,10 @@ def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig):
     # frozen cameras contribute nothing to the reduced system (their updates
     # are pinned to zero), as in the implicit operator
     Jc_act = Jc * cam_w[p.obs_cam][:, None, :]
-    W = Jc.new_zeros((L * N, 6, 3)).index_add_(
-        0, p.obs_pt * N + p.obs_cam, torch.einsum("oki,okj->oij", Jc_act, Jp))
-    Wk = _seg_outer(Jk, Jp, p.obs_pt, L)                              # [L, 2, 3]
-    Uck = _seg_outer(Jc_act, Jk, p.obs_cam, N)                        # [N, 6, 2]
+    W = _reduce(Jc.new_zeros((L * N, 6, 3)).index_add_(
+        0, p.obs_pt * N + p.obs_cam, torch.einsum("oki,okj->oij", Jc_act, Jp)), group)
+    Wk = _seg_outer(Jk, Jp, p.obs_pt, L, group)                       # [L, 2, 3]
+    Uck = _seg_outer(Jc_act, Jk, p.obs_cam, N, group)                 # [N, 6, 2]
 
     W_pack = W.view(L, N, 6, 3).permute(3, 0, 1, 2).reshape(3, L, n6)
     Y_pack = torch.einsum("blq,lbc->clq", W_pack, Vinv)               # [3, L, 6N]
@@ -376,7 +402,8 @@ def _block_diagonal(U: torch.Tensor) -> torch.Tensor:
     return out.reshape(N * a, N * a)
 
 
-def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig):
+def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
+                     group=None):
     """One linear solve with the reduced system applied matrix-free.
 
     Eliminates the landmark blocks, runs block-Jacobi PCG on the reduced
@@ -385,7 +412,7 @@ def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig):
     reads one flag per step.
     Returns (d_cam [N, 6], d_k [2], d_pt [L, 3]).
     """
-    blk = _blocks(r, Jc, Jp, Jk, priors, p, lam)
+    blk = _blocks(r, Jc, Jp, Jk, priors, p, lam, group)
     N, L = blk["N"], blk["L"]
     cam_upd, cam_w, pt_w = blk["cam_upd"], blk["cam_w"], blk["pt_w"]
     Vinv = blk["Vinv"]
@@ -399,12 +426,12 @@ def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig):
     def S_mv(vc, vk):
         vc_act = vc * cam_w
         t = torch.einsum("okj,oj->ok", Jc, vc_act[p.obs_cam]) + Jk @ vk     # [O, 2]
-        g = _seg_vec(Jp, t, p.obs_pt, L)                                    # [L, 3]
+        g = _seg_vec(Jp, t, p.obs_pt, L, group)                             # [L, 3]
         hh = torch.einsum("lij,lj->li", Vinv, g) * pt_w
         tu = t - torch.einsum("oki,oi->ok", Jp, hh[p.obs_pt])
-        Sc = _seg_vec(Jc, tu, p.obs_cam, N) + extra_diag_c * vc_act
+        Sc = _seg_vec(Jc, tu, p.obs_cam, N, group) + extra_diag_c * vc_act
         Sc = torch.where(cam_upd[:, None], Sc, vc)      # identity rows for frozen
-        Sk = torch.einsum("oki,ok->i", Jk, tu) + extra_diag_k * vk
+        Sk = _reduce(torch.einsum("oki,ok->i", Jk, tu), group) + extra_diag_k * vk
         return Sc, Sk
 
     def M_inv(vc, vk):
@@ -438,11 +465,12 @@ def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig):
     return d_cam, x_k, _back_substitute(d_cam, x_k, blk, Jc, Jp, Jk, p)
 
 
-def _dogleg_step(r, Jc, Jp, Jk, priors, p: BAProblem, delta, cfg: BAConfig, solve):
+def _dogleg_step(r, Jc, Jp, Jk, priors, p: BAProblem, delta, cfg: BAConfig, solve,
+                 group=None):
     """Powell dogleg: blend the Gauss-Newton step with the Cauchy
     (steepest-descent) step inside the trust radius ``delta``.
     Returns (d_cam, d_k, d_pt, model_decrease)."""
-    blk = _blocks(r, Jc, Jp, Jk, priors, p, 1e-8)
+    blk = _blocks(r, Jc, Jp, Jk, priors, p, 1e-8, group)
     (_, j_pose), (_, j_pt), (_, j_k), (_, j_abs) = priors
     # negative gradient g = b (the blocks hold b = -J^T r, masked)
     g = (blk["b_c"], blk["b_k"], blk["b_p"])
@@ -455,7 +483,8 @@ def _dogleg_step(r, Jc, Jp, Jk, priors, p: BAProblem, delta, cfg: BAConfig, solv
         hc, hk, hp = h
         t = (torch.einsum("okj,oj->ok", Jc, hc[p.obs_cam]) + Jk @ hk
              + torch.einsum("okj,oj->ok", Jp, hp[p.obs_pt]))
-        return ((t * t).sum() + ((j_pose * hc) ** 2).sum() + ((j_abs * hc) ** 2).sum()
+        return (_reduce((t * t).sum(), group) + ((j_pose * hc) ** 2).sum()
+                + ((j_abs * hc) ** 2).sum()
                 + ((j_pt * hp) ** 2).sum() + ((j_k * hk) ** 2).sum())
 
     g_norm2 = dot_all(g, g)
@@ -463,7 +492,7 @@ def _dogleg_step(r, Jc, Jp, Jk, priors, p: BAProblem, delta, cfg: BAConfig, solv
     sd = tuple(alpha * x for x in g)
     sd_norm = torch.sqrt(alpha * alpha * g_norm2)
 
-    gn = solve(r, Jc, Jp, Jk, priors, p, 1e-8, cfg)
+    gn = solve(r, Jc, Jp, Jk, priors, p, 1e-8, cfg, group)
     gn_norm = torch.sqrt(dot_all(gn, gn))
 
     # blend factor of the segment sd -> gn where it meets the trust boundary
@@ -495,9 +524,14 @@ def use_dense_solver(p: BAProblem, cfg: BAConfig) -> bool:
 
 
 @torch.no_grad()
-def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig()):
+def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig(), group=None):
     """Run LM (or dogleg) until the relative cost decrease of an accepted
     step falls under ``cfg.tolerance``, the damping stalls, or ``max_iters``.
+
+    ``group``: a ``torch.distributed`` process group over which the
+    observation arrays of ``p`` are sharded (``parallel.refine_ba_sharded``);
+    every rank of it must call with its own shard and the same replicated
+    state. None: one process holds every observation.
 
     Returns (poses, points, intr, info) with ``info`` holding
     ``initial_cost``, ``final_cost``, ``lambda`` (0-d tensors) and
@@ -513,7 +547,7 @@ def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig()):
     dogleg = cfg.method.lower() == "dogleg"
 
     poses, points, intr = p.poses, p.points, p.intr
-    cost0 = ba_cost(poses, points, intr, p, anchors, cfg)
+    cost0 = ba_cost(poses, points, intr, p, anchors, cfg, group)
     cost = cost0
     # with dogleg the "lam" slot carries the trust radius
     lam = poses.new_full((), cfg.trust_radius_init if dogleg else cfg.lambda_init)
@@ -522,14 +556,15 @@ def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig()):
         priors = _prior_terms(poses, points, intr, p, anchors, cfg)
         r, Jc, Jp, Jk = _obs_linearize(poses, points, intr, p)
         if dogleg:
-            d_cam, d_k, d_pt, m_dec = _dogleg_step(r, Jc, Jp, Jk, priors, p, lam, cfg, solve)
+            d_cam, d_k, d_pt, m_dec = _dogleg_step(r, Jc, Jp, Jk, priors, p, lam, cfg, solve,
+                                                   group)
         else:
-            d_cam, d_k, d_pt = solve(r, Jc, Jp, Jk, priors, p, lam, cfg)
+            d_cam, d_k, d_pt = solve(r, Jc, Jp, Jk, priors, p, lam, cfg, group)
 
         new_poses = exp_se3(d_cam) @ poses
         new_points = points + d_pt
         new_intr = torch.cat([intr[:2] + d_k, intr[2:]])
-        new_cost = ba_cost(new_poses, new_points, new_intr, p, anchors, cfg)
+        new_cost = ba_cost(new_poses, new_points, new_intr, p, anchors, cfg, group)
         accept = new_cost < cost
 
         poses = torch.where(accept, new_poses, poses)

@@ -10,7 +10,9 @@ TransformToNerf binary invocation).
 
 The run is on the card unless ``--device cpu`` (``run(device="cpu")``) is
 given; without a card it raises. The images are decoded on the host and
-uploaded once.
+uploaded once. ``--devices N`` shards the match graph and the global BAs
+over N processes launched together (``torchrun --nproc-per-node N -m
+eacham_tpu_torch.cli cfg.json --devices N``); rank 0 writes the outputs.
 """
 
 from __future__ import annotations
@@ -41,11 +43,13 @@ def run(config_path: str, max_keypoints: int = 1024, verbose: bool = True,
     from eacham_tpu_torch.sfm.pipeline import run_sfm
     from eacham_tpu_torch.utils.timer import BlockTimer, print_stats
 
-    if n_devices > 1:
-        raise NotImplementedError(
-            "n_devices > 1: sharding over several devices is not ported yet "
-            "(ROADMAP queue 1, item 14: parallel/)")
     dev = resolve_device(device)
+    writer = True
+    if n_devices > 1:
+        from eacham_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+        init_distributed(device=dev)
+        writer = make_mesh(n_devices, device=dev).rank == 0    # raises without the group
     cfg = load_config(config_path)
     t_start = time.perf_counter()
 
@@ -110,12 +114,15 @@ def run(config_path: str, max_keypoints: int = 1024, verbose: bool = True,
         )
 
     # ---- export (main.cpp:237-264) -------------------------------------------
+    out_path = Path(cfg.output_transform_path)
+    if not writer:
+        stats.update(output=str(out_path), decoder=batch.backend, loaded=len(batch.names))
+        return stats
     with BlockTimer("Export", verbose=verbose):
         valid = scene.pose_valid.cpu().numpy()
         poses = scene.pose.cpu().numpy()
         names = [batch.names[i] for i in range(len(batch.names)) if valid[i]]
         intr = scene.intr.cpu().numpy()
-        out_path = Path(cfg.output_transform_path)
         out_path.parent.mkdir(parents=True, exist_ok=True)
         save_positions(
             out_path, names, poses[valid],
@@ -188,8 +195,8 @@ def main(argv=None):
                     default="classical")
     ap.add_argument("--weights", help="directory with deep-frontend .npz")
     ap.add_argument("--devices", type=int, default=1,
-                    help="shard matching + global BA over this many devices "
-                         "(not ported yet: more than 1 raises)")
+                    help="shard matching + global BA over this many devices: one "
+                         "process each, launched by torchrun --nproc-per-node N")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="where the pipeline runs (default: the card; without "
                          "one the run fails unless cpu is asked for)")

@@ -14,8 +14,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from eacham_tpu_torch.device import as_tensor, resolve_device
 from eacham_tpu_torch.features.detector import (
-    N_SCALES, SIGMA0, STEP, _gauss_kernel,
+    N_OCTAVES, N_SCALES, SIGMA0, STEP, _gauss_kernel, octave_stacks,
 )
 
 GRID = 4          # spatial cells per side
@@ -135,3 +136,22 @@ def describe_from_stacks(
     desc = desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-8)
     return torch.where(mask[..., None], desc, 0.0)
 
+
+
+@torch.no_grad()
+def describe_keypoints(
+    img,                     # [H, W] grayscale
+    xy,                      # [K, 2] full-resolution pixels
+    scale_idx,               # [K] int octave * (N_SCALES-1) + level
+    mask,                    # [K] bool
+    n_octaves: int = N_OCTAVES,
+    device: str | torch.device | None = "cuda",
+):
+    """L2-normalized descriptors [K, 256] (zeros where mask=False) of one
+    image's keypoints, sampled in each keypoint's own octave:
+    ``describe_from_stacks`` on a batch of one."""
+    dev = resolve_device(device)
+    img = as_tensor(img, dev, torch.float32)
+    return describe_from_stacks(
+        octave_stacks(img[None], n_octaves), as_tensor(xy, dev, torch.float32)[None],
+        as_tensor(scale_idx, dev)[None], as_tensor(mask, dev, torch.bool)[None])[0]

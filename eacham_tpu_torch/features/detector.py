@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from eacham_tpu_torch.device import as_tensor, resolve_device
+
 SIGMA0 = 1.6
 STEP = 2.0 ** (1.0 / 3.0)
 N_SCALES = 6  # produces N_SCALES-1 DoG levels
@@ -181,3 +183,24 @@ def detect_from_stacks(stacks, max_keypoints: int = 1024,
         mask,
     )
 
+
+
+@torch.no_grad()
+def detect_keypoints(
+    img,                           # [H, W] float32 grayscale in [0, 1]
+    max_keypoints: int = 1024,
+    contrast_threshold: float = 0.006,
+    border: int = 16,
+    n_octaves: int = N_OCTAVES,
+    device: str | torch.device | None = "cuda",
+):
+    """Detect up to ``max_keypoints`` DoG extrema across octaves in one image.
+
+    Returns ``(xy [K, 2] full-resolution pixels, scale_idx [K] int32 —
+    octave * (N_SCALES-1) + level, score [K], mask [K] bool)``: the rows of
+    ``detect_from_stacks`` on a batch of one.
+    """
+    img = as_tensor(img, resolve_device(device), torch.float32)
+    out = detect_from_stacks(octave_stacks(img[None], n_octaves), max_keypoints,
+                             contrast_threshold, border)
+    return tuple(o[0] for o in out)

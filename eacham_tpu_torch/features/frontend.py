@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from eacham_tpu_torch.device import as_tensor, resolve_device
@@ -37,3 +39,30 @@ def extract_features(
         desc = describe_from_stacks(stacks, xy, sidx, mask)
         outs.append((xy, desc, score, mask))
     return tuple(torch.cat([o[i] for o in outs]) for i in range(4))
+
+
+@dataclass
+class ClassicalFrontend:
+    """Configuration-carrying wrapper of ``extract_features``: ``batch``
+    frames a step, the last chunk padded with blank frames to ``batch`` as
+    the reference pads it, the padding cut from the result."""
+
+    max_keypoints: int = 1024
+    contrast_threshold: float = 0.006
+    batch: int = 8           # frames a step (bounds the scale-space memory)
+    device: str | torch.device | None = "cuda"
+
+    def __call__(self, images) -> tuple:
+        dev = resolve_device(self.device)
+        images = as_tensor(images, dev, torch.float32)
+        n = images.shape[0]
+        outs = []
+        for s in range(0, n, self.batch):
+            chunk = images[s:s + self.batch]
+            pad = self.batch - chunk.shape[0]
+            if pad:
+                chunk = torch.cat([chunk, chunk.new_zeros((pad,) + chunk.shape[1:])])
+            outs.append(extract_features(chunk, max_keypoints=self.max_keypoints,
+                                         contrast_threshold=self.contrast_threshold,
+                                         device=dev))
+        return tuple(torch.cat([o[i] for o in outs])[:n] for i in range(4))

@@ -1,5 +1,5 @@
 """Geometry: SE(3), camera, RANSAC, triangulation, epipolar and homography
-estimation (port of eacham_tpu/geometry)."""
+estimation, stereo and depth backprojection (port of eacham_tpu/geometry)."""
 
 from eacham_tpu_torch.geometry.se3 import (  # noqa: F401
     hat,
@@ -24,4 +24,10 @@ from eacham_tpu_torch.geometry.triangulation import (  # noqa: F401
     triangulation_angle,
     is_positive_depth,
     triangulate_consensus,
+)
+from eacham_tpu_torch.geometry.stereo import (  # noqa: F401
+    point_from_stereo,
+    point_from_depth,
+    hamming_distance,
+    match_hamming,
 )

@@ -1,5 +1,6 @@
 """SfM state, match graph, two-view initialization, the pipeline, loop
-closing and absolute anchors (port of eacham_tpu/sfm)."""
+closing, absolute anchors and metric RGB-D / stereo reconstruction (port of
+eacham_tpu/sfm)."""
 
 from eacham_tpu_torch.sfm.scene import Scene, make_scene, ba_problem_from_scene  # noqa: F401
 from eacham_tpu_torch.sfm.matches import build_match_tables, observers_of_frame  # noqa: F401
@@ -9,3 +10,6 @@ from eacham_tpu_torch.sfm.pipeline import (  # noqa: F401
     run_sfm, resume_sfm, initialize_sfm, SfmOptions,
 )
 from eacham_tpu_torch.sfm.anchors import anchors_in_estimate_frame  # noqa: F401
+from eacham_tpu_torch.sfm.rgbd import (  # noqa: F401
+    run_sfm_rgbd, depth_at_keypoints, stereo_depth_at_keypoints,
+)

@@ -15,7 +15,7 @@ import torch
 
 from eacham_tpu_torch.ba.core import BAConfig, refine_ba
 from eacham_tpu_torch.sfm.pipeline import (
-    local_neighbors, next_best_view, pnp_register, set_pose,
+    local_neighbors, next_best_view, pnp_register, set_pose, sync_ranks,
 )
 from eacham_tpu_torch.sfm.scene import (
     Scene, ba_problem_windowed, scatter_window_points, scatter_window_poses,
@@ -104,7 +104,8 @@ def _register(scene, cur, T, pid_row, it, max_repr_error, min_tri_angle, min_ba_
 
 def registration_sweep(scene: Scene, excluded: torch.Tensor, fp_tbl: torch.Tensor,
                        generator: torch.Generator | None, max_repr_error: float,
-                       min_tri_angle: float, segment: int = 0, on_segment=None, **kw):
+                       min_tri_angle: float, segment: int = 0, on_segment=None, mesh=None,
+                       **kw):
     """Register every reachable frame. Returns (scene, excluded,
     n_registered).
 
@@ -113,17 +114,24 @@ def registration_sweep(scene: Scene, excluded: torch.Tensor, fp_tbl: torch.Tenso
     last one): the hook for interim global BA, which arrests the pose drift
     that a purely local-window sweep accumulates over hundreds of frames.
     The local-BA cadence ``ba_every`` counts iterations within a segment.
+
+    Under a ``mesh`` of several ranks every rank sweeps on its own, and
+    after each segment all take rank 0's scene state, ``excluded`` and
+    decision to go on (``pipeline.sync_ranks``), so that all enter
+    ``on_segment``'s collectives together; ``n_registered`` is rank 0's.
     """
     N = scene.kp_mask.shape[0]
     if segment <= 0 or segment >= N:
         scene, excluded, n_reg, _ = registration_sweep_step(
             scene, excluded, fp_tbl, generator, max_repr_error, min_tri_angle, **kw)
+        scene, excluded, (n_reg,) = sync_ranks(mesh, scene, excluded, n_reg)
         return scene, excluded, n_reg
     total = 0
     for _ in range(0, N + segment, segment):
         scene, excluded, n_reg, more = registration_sweep_step(
             scene, excluded, fp_tbl, generator, max_repr_error, min_tri_angle,
             max_steps=segment, **kw)
+        scene, excluded, (n_reg, more) = sync_ranks(mesh, scene, excluded, n_reg, more)
         total += n_reg
         if not more:
             break

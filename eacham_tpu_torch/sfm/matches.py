@@ -10,9 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from eacham_tpu_torch.features.matching import match_all_pairs
 from eacham_tpu_torch.geometry.camera import pixel_to_normalized
 from eacham_tpu_torch.geometry.epipolar import estimate_essential
+from eacham_tpu_torch.parallel.matching import match_all_pairs_sharded
+from eacham_tpu_torch.parallel.mesh import local_mesh
 
 
 def all_pairs_index(n_frames: int) -> np.ndarray:
@@ -162,12 +163,16 @@ def build_match_tables(
     verify: tuple | None = None,   # (keypoints, intr, generator, px_thr, n_hyp)
     verify_sample_idx: torch.Tensor | None = None,
     pair_idx: np.ndarray | None = None,
+    mesh=None,
 ):
     """Exhaustive matching + epipolar verification + inverse tables.
 
     ``chunk`` bounds the plain matcher's memory on the CPU (the kernel
     takes every pair in one launch). ``pair_idx`` (host [P, 2], i < j)
-    overrides the all-pairs enumeration with a candidate subset.
+    overrides the all-pairs enumeration with a candidate subset. The pairs
+    are split over the ranks of ``mesh`` (``parallel.make_mesh``; default:
+    this process alone) by ``parallel.match_all_pairs_sharded``, and every
+    rank gets the full tables.
 
     Returns ``(pair_idx [P, 2] int32, pair_ok, match_ij, valid_ij,
     match_ji, valid_ji)`` on the descriptors' device — P includes the
@@ -176,9 +181,9 @@ def build_match_tables(
     if pair_idx is None:
         pair_idx = all_pairs_index(desc.shape[0])
     pair_idx = torch.as_tensor(bucket_pairs(pair_idx), device=desc.device)
-    match_ij, valid_ij, pair_ok = match_all_pairs(
-        desc, kp_mask, pair_idx, ratio=ratio, min_matches=min_matches,
-        chunk=chunk)
+    match_ij, valid_ij, pair_ok = match_all_pairs_sharded(
+        desc, kp_mask, pair_idx, mesh or local_mesh(desc.device), ratio=ratio,
+        min_matches=min_matches, chunk=chunk)
     if verify is not None:
         kps, intr, generator, px_thr, n_hyp = verify
         valid_ij = verify_matches_epipolar(

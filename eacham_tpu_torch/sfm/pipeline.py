@@ -27,9 +27,15 @@ over the frames still unregistered, then the finalization. With
 ``checkpoint_path`` set, both sweeps save the scene after every
 ``checkpoint_every``-th segment (``io/checkpoint.py``).
 
-Not carried yet, and refused with ``NotImplementedError``: sharding over
-several devices. The reference's ``EACHAM_PGO_DUMP`` debug dump of the
-pose-graph inputs is not read.
+Several devices (``n_devices > 1``): one process per device, launched
+together (``torchrun --nproc-per-node N``), each calling
+``parallel.init_distributed()`` first. Every rank runs the same pipeline;
+the match graph's pairs and the global BAs' observations are split over
+the ranks (``parallel/``). The other stages run on every rank, and rank
+0's state and decisions hold at every point where the ranks meet
+(``sync_ranks``): the features, the verified graph, the initial pair,
+each sweep segment, each sharded BA. The reference's ``EACHAM_PGO_DUMP`` debug dump of the pose-graph
+inputs is not read.
 """
 
 from __future__ import annotations
@@ -40,10 +46,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from eacham_tpu_torch.ba.core import BAConfig, refine_ba
+from eacham_tpu_torch.ba.core import BAConfig
 from eacham_tpu_torch.device import as_tensor, resolve_device, to_numpy
 from eacham_tpu_torch.geometry.camera import intrinsics_from_image_size
 from eacham_tpu_torch.geometry.pnp import solve_pnp_ransac
+from eacham_tpu_torch.parallel.ba import broadcast_state, refine_ba_sharded
+from eacham_tpu_torch.parallel.mesh import local_mesh, make_mesh
 from eacham_tpu_torch.sfm.filtering import prune_observations
 from eacham_tpu_torch.sfm.matches import (
     all_pairs_index, build_match_tables, candidate_pairs, invert_matches,
@@ -69,7 +77,8 @@ class SfmOptions:
     between the two packages unchanged. ``device_loop`` picks between the
     segmented sweep of ``sfm/device_loop.py`` (with interim global BA
     between segments) and the plain per-frame loop; both run on the host
-    here. ``n_devices > 1`` is refused."""
+    here. ``n_devices > 1`` needs a process group of that many ranks (see
+    the module docstring)."""
 
     # features / matching
     max_features: int = 1024
@@ -263,8 +272,38 @@ def _bucket(n: int, cap: int, floor: int = 1024) -> int:
     return min(b, cap)
 
 
+_SCENE_STATE = ("pose", "pose_valid", "pose_fixed", "points", "lm_valid", "lm_two_view",
+                "n_landmarks", "kp2lm", "intr")
+
+
+def sync_ranks(mesh, scene: Scene, excluded=None, *flags, fields=_SCENE_STATE):
+    """Rank 0's ``fields`` of ``scene``, its ``excluded`` and its integer
+    ``flags`` on every rank of ``mesh``. Without a process group nothing
+    moves and nothing is read from the device. Returns (scene, excluded,
+    [flags]).
+
+    Each rank runs the replicated stages (the epipolar verification, the
+    initial pair, the sweep) on its own, and float atomics on the card can
+    make their results part. So every decision that leads to a collective
+    is taken on rank 0's values: all ranks run the same collectives in the
+    same order, and rank 0's state holds from there on.
+    """
+    if mesh is None or mesh.group is None:
+        return scene, excluded, list(flags)
+    extra = [] if excluded is None else [excluded]
+    if flags:
+        extra.append(torch.tensor([int(f) for f in flags], dtype=torch.int64,
+                                  device=scene.pose.device))
+    out = broadcast_state([getattr(scene, f) for f in fields] + extra, mesh)
+    scene = scene._replace(**dict(zip(fields, out)))
+    rest = out[len(fields):]
+    if excluded is not None:
+        excluded = rest.pop(0)
+    return scene, excluded, rest[0].tolist() if flags else []
+
+
 def _ba(scene: Scene, cam_in_ba, cfg: BAConfig, min_landmarks: int,
-        program_iters: int = 0, abs_anchors=None):
+        program_iters: int = 0, abs_anchors=None, mesh=None):
     """Build the BA problem over ``cam_in_ba`` with its axes compacted to
     bucketed sizes (two scalars are read back to choose them), skip it if
     it holds fewer than ``min_landmarks`` landmarks, run LM, write back.
@@ -276,8 +315,17 @@ def _ba(scene: Scene, cam_in_ba, cfg: BAConfig, min_landmarks: int,
     than 131072 observation slots) into rounds of that many iterations,
     stopping early when a round's relative cost decrease falls under the
     tolerance.
+
+    The observations are split over the ranks of ``mesh``
+    (``parallel.make_mesh``; default: this process alone) by
+    ``refine_ba_sharded``, after every rank has taken rank 0's scene state,
+    so that all build the same problem.
     """
     N, K = scene.kp_mask.shape
+    mesh = mesh or local_mesh(scene.pose.device)
+    *state, cam_in_ba = broadcast_state(
+        [getattr(scene, f) for f in _SCENE_STATE] + [cam_in_ba], mesh)
+    scene = scene._replace(**dict(zip(_SCENE_STATE, state)))
     n_obs, n_lms = torch.stack(ba_problem_counts(scene, cam_in_ba)).tolist()
     if n_lms < min_landmarks:
         return scene, None
@@ -295,7 +343,7 @@ def _ba(scene: Scene, cam_in_ba, cfg: BAConfig, min_landmarks: int,
         run_cfg = cfg._replace(max_iters=program_iters)
     info = None
     for _ in range(rounds):
-        poses, points, intr, info_r = refine_ba(prob, run_cfg)
+        poses, points, intr, info_r = refine_ba_sharded(prob, run_cfg, mesh)
         if info is None:
             info = dict(info_r)
         else:
@@ -370,11 +418,11 @@ def initialize_sfm(
     same epipolar cleanup as the built-in matcher's tables.
     """
     opt = options
-    _refuse_unported(opt)
     if match_tables is not None and len(match_tables) not in (3, 6):
         raise ValueError("match_tables is a 3-tuple or a 6-tuple; got "
                          f"{len(match_tables)} entries")
     dev = resolve_device(device)
+    mesh = _mesh(opt, dev)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(opt.seed)
     keypoints = as_tensor(keypoints, dev, torch.float32)
@@ -383,6 +431,9 @@ def initialize_sfm(
     N = keypoints.shape[0]
     intr = (intrinsics_from_image_size(*image_size, device=dev) if intr is None
             else as_tensor(intr, dev, torch.float32))
+    # every rank starts from rank 0's features (see sync_ranks)
+    keypoints, descriptors, kp_mask, intr = broadcast_state(
+        [keypoints, descriptors, kp_mask, intr], mesh)
     seconds = {}
     t0 = time.perf_counter()
 
@@ -407,7 +458,7 @@ def initialize_sfm(
             verify = (keypoints, intr, generator, opt.max_repr_error, opt.verify_hyps)
         pair_idx, pair_ok, m_ij, v_ij, m_ji, v_ji = build_match_tables(
             descriptors, kp_mask, ratio=opt.match_ratio, min_matches=opt.min_matches,
-            chunk=opt.match_chunk, verify=verify, pair_idx=cand)
+            chunk=opt.match_chunk, verify=verify, pair_idx=cand, mesh=mesh)
     elif len(match_tables) == 6:
         pair_idx, pair_ok, m_ij, v_ij, m_ji, v_ji = (
             as_tensor(x, dev) for x in match_tables)
@@ -426,6 +477,8 @@ def initialize_sfm(
     del descriptors
     scene = make_scene(keypoints, kp_mask, pair_idx, pair_ok, m_ij, v_ij,
                        m_ji, v_ji, intr, lm_capacity=opt.lm_capacity)
+    # the epipolar verification draws on each rank: rank 0's graph holds
+    scene, _, _ = sync_ranks(mesh, scene, fields=Scene._fields)
     n_edges = int(pair_ok.sum())
     log(f"match graph: {n_edges}/{pair_idx.shape[0]} edges survive")
     stats = {"frames": N, "pairs": int(pair_idx.shape[0]), "edges": n_edges,
@@ -444,17 +497,22 @@ def initialize_sfm(
         min_tri_angle=opt.init_min_tri_angle,
         chunk=opt.init_chunk, n_hyp_e=opt.ransac_hyps_e, n_hyp_h=opt.ransac_hyps_h)
     seconds["init_pair"] = time.perf_counter() - t
-    if pair_row is None:
+    n_good = used_h = 0
+    if pair_row is not None:
+        t = time.perf_counter()
+        scene = seed_initial_pair(scene, pair_row, init.T, init.points, init.point_ok)
+        _sync(dev)
+        seconds["seed"] = time.perf_counter() - t
+        n_good, used_h = int(init.n_good), int(init.used_homography)
+    # the pair search draws on each rank: rank 0's pair (or none) holds
+    scene, _, (pair_row, n_good, used_h) = sync_ranks(
+        mesh, scene, None, -1 if pair_row is None else pair_row, n_good, used_h)
+    if pair_row < 0:
         log("no initial pair found")
         return scene, stats
     i0, j0 = (int(x) for x in scene.pair_idx[pair_row].tolist())
-    t = time.perf_counter()
-    scene = seed_initial_pair(scene, pair_row, init.T, init.points, init.point_ok)
-    _sync(dev)
-    seconds["seed"] = time.perf_counter() - t
     stats.update(initialized=True, init_pair=(i0, j0), pair_row=pair_row,
-                 n_good=int(init.n_good), used_homography=bool(init.used_homography),
-                 T_init=init.T)
+                 n_good=n_good, used_homography=bool(used_h), T_init=scene.pose[j0].clone())
     log(f"init pair ({i0}, {j0}): {stats['n_good']} points, "
         f"H={stats['used_homography']}")
     return scene, stats
@@ -475,12 +533,11 @@ def _ba_configs(opt: SfmOptions):
     return refine_cfg, global_cfg
 
 
-def _refuse_unported(opt: SfmOptions) -> None:
-    """Raise for what this port does not carry yet: sharding."""
-    if opt.n_devices > 1:
-        raise NotImplementedError(
-            "n_devices > 1: sharding over several devices is not ported yet "
-            "(ROADMAP queue 1, item 14: parallel/)")
+def _mesh(opt: SfmOptions, dev: torch.device):
+    """The run's mesh: this process alone for one device; for
+    ``n_devices > 1`` the initialized process group of that many ranks (a
+    ValueError that says how to launch otherwise)."""
+    return local_mesh(dev) if opt.n_devices <= 1 else make_mesh(opt.n_devices, device=dev)
 
 
 def _n_far(scene: Scene) -> int:
@@ -529,8 +586,8 @@ def run_sfm(
     ``finalize`` beside the earlier stages'.
     """
     opt = options
-    _refuse_unported(opt)
     dev = resolve_device(device)
+    mesh = _mesh(opt, dev)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(opt.seed)
     t0 = time.perf_counter()
@@ -557,12 +614,14 @@ def run_sfm(
     excluded = torch.zeros(N, dtype=torch.bool, device=dev)
     written: list[int] = []
     if opt.device_loop:
-        on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log), opt, log, written)
+        on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log, mesh), opt, log,
+                                      written, mesh)
         scene, excluded, n_reg = _sweep(scene, excluded, fp_tbl, generator, opt,
-                                        refine_cfg, on_segment)
+                                        refine_cfg, on_segment, mesh)
         log(f"sweep: +{n_reg} frames registered, {int(excluded.sum())} excluded")
     else:
         scene, excluded = _host_loop(scene, excluded, fp_tbl, generator, opt, refine_cfg, log)
+        scene, excluded, _ = sync_ranks(mesh, scene, excluded)
     _sync(dev)
     stats["seconds"]["sweep"] = time.perf_counter() - t
 
@@ -574,7 +633,7 @@ def run_sfm(
 
     t = time.perf_counter()
     scene, final = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors,
-                             fp_tbl=fp_tbl, n_loop_edges=n_far)
+                             fp_tbl=fp_tbl, n_loop_edges=n_far, mesh=mesh)
     _sync(dev)
     stats["seconds"]["finalize"] = time.perf_counter() - t
     stats.update(final, checkpoints=len(written))
@@ -582,7 +641,7 @@ def run_sfm(
     return scene, stats
 
 
-def _interim_ba(opt: SfmOptions, global_cfg: BAConfig, log):
+def _interim_ba(opt: SfmOptions, global_cfg: BAConfig, log, mesh=None):
     """The sweep's between-segment hook: a short global BA that arrests the
     drift of a long local-window sweep (None when ``interim_ba_iters`` is 0)."""
     if opt.interim_ba_iters <= 0:
@@ -591,7 +650,7 @@ def _interim_ba(opt: SfmOptions, global_cfg: BAConfig, log):
 
     def on_segment(s):
         s, info = _ba(s, s.pose_valid, interim_cfg, opt.min_ba_landmarks,
-                      program_iters=opt.ba_program_iters)
+                      program_iters=opt.ba_program_iters, mesh=mesh)
         if info is not None:
             log(f"interim BA: {float(info['initial_cost']):.1f} -> "
                 f"{float(info['final_cost']):.1f}")
@@ -600,11 +659,12 @@ def _interim_ba(opt: SfmOptions, global_cfg: BAConfig, log):
     return on_segment
 
 
-def _with_checkpoint(on_segment, opt: SfmOptions, log, written: list | None = None):
+def _with_checkpoint(on_segment, opt: SfmOptions, log, written: list | None = None,
+                     mesh=None):
     """Wrap a sweep's ``on_segment`` hook with a scene checkpoint
     (``opt.checkpoint_path``) after every ``opt.checkpoint_every``-th
     segment: the crash-resume hook. Appends the segment number of each
-    write to ``written``."""
+    write to ``written``. Under a mesh of several ranks rank 0 writes."""
     if not opt.checkpoint_path:
         return on_segment
     seg = 0
@@ -617,7 +677,8 @@ def _with_checkpoint(on_segment, opt: SfmOptions, log, written: list | None = No
         if seg % max(opt.checkpoint_every, 1) == 0:
             from eacham_tpu_torch.io.checkpoint import save_scene
 
-            save_scene(opt.checkpoint_path, s)
+            if mesh is None or mesh.rank == 0:
+                save_scene(opt.checkpoint_path, s)
             if written is not None:
                 written.append(seg)
             log(f"checkpoint: segment {seg} -> {opt.checkpoint_path}")
@@ -627,7 +688,7 @@ def _with_checkpoint(on_segment, opt: SfmOptions, log, written: list | None = No
 
 
 def _sweep(scene: Scene, excluded, fp_tbl, generator, opt: SfmOptions, refine_cfg: BAConfig,
-           on_segment):
+           on_segment, mesh=None):
     """``device_loop.registration_sweep`` with a run's options. Returns
     (scene, excluded, n_registered)."""
     from eacham_tpu_torch.sfm.device_loop import registration_sweep
@@ -643,7 +704,7 @@ def _sweep(scene: Scene, excluded, fp_tbl, generator, opt: SfmOptions, refine_cf
         ba_max_obs=min(opt.local_ba_max_obs, min(opt.local_ba_max_cams, N) * K),
         ba_max_lms=opt.local_ba_max_lms, ba_every=opt.local_ba_every,
         ba_free_span=opt.local_ba_free_span, segment=opt.sweep_segment,
-        on_segment=on_segment)
+        on_segment=on_segment, mesh=mesh)
 
 
 @torch.no_grad()
@@ -676,12 +737,13 @@ def resume_sfm(
     reference.
     """
     opt = options
-    _refuse_unported(opt)
     dev = resolve_device(device)
+    mesh = _mesh(opt, dev)
     scene = Scene(*(as_tensor(x, dev) for x in scene))
     N, K = scene.kp_mask.shape
     excluded = (torch.zeros(N, dtype=torch.bool, device=dev) if excluded is None
                 else as_tensor(excluded, dev, torch.bool))
+    scene, excluded, _ = sync_ranks(mesh, scene, excluded, fields=Scene._fields)
 
     def log(*a):
         if verbose:
@@ -697,9 +759,10 @@ def resume_sfm(
     refine_cfg, global_cfg = _ba_configs(opt)
     written: list[int] = []
     t = time.perf_counter()
-    on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log), opt, log, written)
+    on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log, mesh), opt, log, written,
+                                  mesh)
     scene, excluded, n_reg = _sweep(scene, excluded, fp_tbl, generator, opt, refine_cfg,
-                                    on_segment)
+                                    on_segment, mesh)
     _sync(dev)
     seconds = {"sweep": time.perf_counter() - t}
     log(f"resume sweep: +{n_reg} frames registered")
@@ -709,7 +772,7 @@ def resume_sfm(
                        "finalized": False, "checkpoints": len(written), "seconds": seconds}
     t = time.perf_counter()
     scene, stats = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors,
-                             fp_tbl=fp_tbl, n_loop_edges=_n_far(scene))
+                             fp_tbl=fp_tbl, n_loop_edges=_n_far(scene), mesh=mesh)
     _sync(dev)
     seconds["finalize"] = time.perf_counter() - t
     stats.update(initialized=True, init_pair=(-1, -1), checkpoints=len(written),
@@ -866,15 +929,16 @@ def _ba_record(info):
 
 
 def _finalize(scene: Scene, excluded, opt: SfmOptions, global_cfg: BAConfig, log,
-              abs_anchors=None, fp_tbl=None, n_loop_edges: int = 0):
+              abs_anchors=None, fp_tbl=None, n_loop_edges: int = 0, mesh=None):
     """Prune, global BA, prune, and a second BA when the second prune
     changed the problem (at least 0.1% of the observations, and 8, removed);
     then the map-refinement rounds, each a ``rebuild_map`` under the
     BA-improved poses, a prune and a global BA. ``map_refine_rounds`` -1
     (AUTO) means 3 rounds for a windowed run (``pair_window > 0``) with
     long-range edges (``n_loop_edges > 0``) and ``fp_tbl`` given, else 0:
-    the rebuild re-merges the tracks that drift forced apart. Returns
-    (scene, run statistics)."""
+    the rebuild re-merges the tracks that drift forced apart. Every global
+    BA is sharded over ``mesh`` when one is given. Returns (scene, run
+    statistics)."""
     refine_rounds = opt.map_refine_rounds
     if refine_rounds < 0:
         refine_rounds = 3 if (opt.pair_window > 0 and n_loop_edges > 0
@@ -886,20 +950,22 @@ def _finalize(scene: Scene, excluded, opt: SfmOptions, global_cfg: BAConfig, log
             scene, n_obs, n_lm = prune_observations(scene, opt.max_repr_error)
             log(f"prune: -{int(n_obs)} observations, -{int(n_lm)} landmarks")
         scene, info = _ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks,
-                          program_iters=opt.ba_program_iters, abs_anchors=abs_anchors)
+                          program_iters=opt.ba_program_iters, abs_anchors=abs_anchors,
+                          mesh=mesh)
         if info is not None:
             ba_info = {**_ba_record(info), "second": None}
             log(f"global BA: {ba_info['initial_cost']:.1f} -> {ba_info['final_cost']:.1f} "
                 f"({ba_info['iterations']} iters)")
         if opt.prune_outliers and info is not None:
             scene, n_obs, n_lm = prune_observations(scene, opt.max_repr_error)
-            n_obs = int(n_obs)
             total_obs = int(((scene.kp2lm >= 0) & scene.kp_mask
                              & scene.pose_valid[:, None]).sum())
+            _, _, (n_obs, total_obs) = sync_ranks(mesh, scene, None, int(n_obs), total_obs,
+                                                  fields=())
             if n_obs >= max(8, total_obs // 1000):
                 scene, info2 = _ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks,
                                    program_iters=opt.ba_program_iters,
-                                   abs_anchors=abs_anchors)
+                                   abs_anchors=abs_anchors, mesh=mesh)
                 if info2 is not None:
                     ba_info["second"] = _ba_record(info2)
                     log(f"global BA 2 (post-prune -{n_obs} obs): "
@@ -919,7 +985,8 @@ def _finalize(scene: Scene, excluded, opt: SfmOptions, global_cfg: BAConfig, log
             t = time.perf_counter()
             scene, n_obs, _ = prune_observations(scene, opt.max_repr_error)
             scene, info3 = _ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks,
-                               program_iters=opt.ba_program_iters, abs_anchors=abs_anchors)
+                               program_iters=opt.ba_program_iters, abs_anchors=abs_anchors,
+                               mesh=mesh)
             _sync(dev)
             rounds.append({"rebuilt_landmarks": rebuilt, "pruned_observations": int(n_obs),
                            "landmarks": int(scene.lm_valid.sum()), "ba": _ba_record(info3),

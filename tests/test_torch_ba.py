@@ -167,6 +167,54 @@ def test_refine_ba_matches_reference(solver, method, anchors):
     assert 1 <= info["iterations"] <= 25
 
 
+def _reference_point_prior_block(j_pt):
+    """The reference's block: j^2 on all nine entries of a point's block."""
+    return (j_pt[:, :1] * j_pt[:, :1])[:, :, None].expand(-1, 3, 3)
+
+
+@pytest.mark.parametrize("solver", ["dense", "pcg"])
+@pytest.mark.parametrize("priors", ["off", "reference_block"])
+def test_one_lm_step_matches_reference(solver, priors, monkeypatch):
+    """One LM step from the same problem (the solve converged: Cholesky,
+    or 200 PCG iterations) lands where the JAX package's does: points and
+    poses within 1e-4, cost rel 1e-4 (fp32 sums over the observations in
+    another order). With the point priors on, as strong
+    as the observations (``pt_obs_count`` 100), the two differ only in how
+    the prior enters the normal equations (ROADMAP §3): with the
+    reference's block put in, the step is the reference's."""
+    from eacham_tpu.ba import BAConfig as JConfig, refine_ba as jax_refine_ba
+
+    d, _ = make_problem()
+    d["pt_obs_count"] = np.full_like(d["pt_obs_count"], 100.0)
+    kw = dict(max_iters=1, solver=solver, dense_cg_iters=0, cg_iters=200, cg_tol=1e-10,
+              use_point_priors=priors != "off")
+    if priors == "reference_block":
+        monkeypatch.setattr(tba, "_point_prior_block", _reference_point_prior_block)
+    ref = jax_refine_ba(_jax_problem(d), JConfig(**kw))
+    got = tba.refine_ba(convert.ba_problem_from_numpy(d, device="cpu"), tba.BAConfig(**kw))
+    on = d["pt_in_ba"]
+    assert np.abs(got[1].numpy()[on] - d["points"][on]).max() > 0.1     # the step moved
+    np.testing.assert_allclose(got[1].numpy()[on], np.asarray(ref[1])[on], atol=1e-4)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(ref[0]), atol=1e-4)
+    c, c_ref = float(got[3]["final_cost"]), float(ref[3]["final_cost"])
+    assert abs(c - c_ref) <= 1e-4 * c_ref
+
+
+def test_point_prior_block_is_the_ports_own():
+    """The port's block (the prior per axis, on the diagonal) gives a step
+    of its own: one LM step from the problem above moves the points by more
+    than 0.01 away from the reference's step."""
+    from eacham_tpu.ba import BAConfig as JConfig, refine_ba as jax_refine_ba
+
+    d, _ = make_problem()
+    d["pt_obs_count"] = np.full_like(d["pt_obs_count"], 100.0)
+    kw = dict(max_iters=1, solver="dense", dense_cg_iters=0)
+    ref = jax_refine_ba(_jax_problem(d), JConfig(**kw))
+    got = tba.refine_ba(convert.ba_problem_from_numpy(d, device="cpu"), tba.BAConfig(**kw))
+    on = d["pt_in_ba"]
+    assert np.abs(got[1].numpy()[on] - np.asarray(ref[1])[on]).max() > 0.01
+
+
 def test_cholesky_branch_and_its_guard():
     """dense_cg_iters=0 solves by Cholesky and agrees with the CG branch; a
     system that is not finite gives the zero step, not NaNs."""

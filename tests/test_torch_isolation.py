@@ -40,10 +40,13 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
             "eacham_tpu_torch.sfm.streaming", "eacham_tpu_torch.cli",
             "eacham_tpu_torch.utils.timer", "eacham_tpu_torch.io",
             "eacham_tpu_torch.sfm.posegraph", "eacham_tpu_torch.sfm.submap",
-            "eacham_tpu_torch.sfm.anchors",
+            "eacham_tpu_torch.sfm.anchors", "eacham_tpu_torch.sfm.rgbd",
+            "eacham_tpu_torch.geometry.stereo", "eacham_tpu_torch.utils.profiling",
+            "eacham_tpu_torch.utils.viz",
+            *(f"eacham_tpu_torch.parallel.{m}" for m in ("mesh", "matching", "ba")),
             *(f"eacham_tpu_torch.io.{m}" for m in (
                 "native_loader", "images", "config", "saver", "nerf", "export",
-                "checkpoint", "stream"))} <= set(mods)
+                "checkpoint", "stream", "datasets"))} <= set(mods)
     code = "\n".join([
         "import sys",
         f"sys.path.insert(0, {str(ROOT)!r})",
@@ -57,14 +60,22 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
         "import eacham_tpu_torch as e",
         "from eacham_tpu_torch.sfm import (run_sfm, resume_sfm, SfmOptions, Scene, make_scene,",
         "    ba_problem_from_scene, build_match_tables, observers_of_frame,",
-        "    recover_pose_two_view, find_best_pair, triangulate_frame, anchors_in_estimate_frame)",
+        "    recover_pose_two_view, find_best_pair, triangulate_frame, anchors_in_estimate_frame,",
+        "    run_sfm_rgbd, depth_at_keypoints, stereo_depth_at_keypoints)",
         "from eacham_tpu_torch.geometry import (hat, exp_se3, log_se3, retract, inverse_se3,",
         "    transform_points, camera_center, make_intrinsics, intrinsics_from_image_size,",
         "    project, project_hom, backproject, pixel_to_normalized, reprojection_error,",
-        "    triangulate_dlt, triangulation_angle, is_positive_depth, triangulate_consensus)",
+        "    triangulate_dlt, triangulation_angle, is_positive_depth, triangulate_consensus,",
+        "    point_from_stereo, point_from_depth, hamming_distance, match_hamming)",
         "from eacham_tpu_torch.ba import BAProblem, BAConfig, refine_ba, ba_cost",
-        "from eacham_tpu_torch.utils import align_umeyama, ate_rmse, BlockTimer, print_stats",
-        "from eacham_tpu_torch.features import build_scale_space, match_all_pairs, extract_features",
+        "from eacham_tpu_torch.utils import (align_umeyama, ate_rmse, BlockTimer, print_stats,",
+        "    device_trace, memory_summary, draw_matches)",
+        "from eacham_tpu_torch.features import (build_scale_space, match_all_pairs,",
+        "    extract_features, detect_keypoints, describe_keypoints, match_pair,",
+        "    ClassicalFrontend)",
+        "from eacham_tpu_torch.io import TumDataset, KittiDataset, load_tum_groundtruth",
+        "from eacham_tpu_torch.parallel import (init_distributed, make_mesh, make_mesh_2d,",
+        "    mesh_axes, match_all_pairs_sharded, refine_ba_sharded)",
         "from eacham_tpu_torch.features.deep import (SuperPointNet, extract_deep,",
         "    LightGlueMatcher, match_deep)",
         "assert e.run_sfm is run_sfm and e.resume_sfm is resume_sfm and e.SfmOptions is SfmOptions",
@@ -177,3 +188,43 @@ def test_bench_gpu_fails_without_a_card():
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode != 0 and "sfm_frames_per_s" not in out.stdout
     assert "no CUDA device" in out.stderr
+
+
+def test_rgbd_datasets_frontend_and_parallel_entry_points_refuse_a_missing_card(tmp_path):
+    """The seventh slice's entry points raise as well: the metric pipeline
+    and its depth sampling, the TUM path past its host-side reader (the
+    readers return numpy batches, as ``load_image_dir`` does; the first step
+    on the card refuses), the per-image frontend, and the process group and
+    mesh of a sharded run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from eacham_tpu_torch import features, parallel
+    from eacham_tpu_torch.io.datasets import TumDataset
+    from eacham_tpu_torch.sfm import rgbd
+
+    ds = TumDataset.open(ROOT / "tests" / "data" / "tum_mini")
+    batch = ds.load(max_count=2)
+    assert batch.images.shape == (2, 192, 256)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        features.extract_features(batch.images, max_keypoints=8)
+    depth = np.zeros((2, 192, 256), np.float32)
+    xy = np.zeros((2, 8, 2), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rgbd.depth_at_keypoints(depth, xy)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rgbd.stereo_depth_at_keypoints(xy, np.zeros((2, 8), np.float32),
+                                       np.ones(4, np.float32), 0.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rgbd.run_sfm_rgbd(xy, np.zeros((2, 8, 256), np.float32), np.ones((2, 8), bool),
+                          np.ones((2, 8), np.float32), np.ones(4, np.float32), verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        features.detect_keypoints(batch.images[0], max_keypoints=8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        features.describe_keypoints(batch.images[0], xy[0], np.zeros(8, np.int32),
+                                    np.ones(8, bool))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        features.ClassicalFrontend(max_keypoints=8)(batch.images)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.init_distributed(f"file://{tmp_path / 'store'}", 1, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.make_mesh()

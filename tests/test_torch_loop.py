@@ -167,7 +167,8 @@ def test_resume_of_a_windowed_scene(sequence, port_run):
     assert st2["registered"] == N_FRAMES and len(st2["map_refine"]) == 3
     valid = final.pose_valid.numpy()
     assert trajectory_ate(final.pose.numpy()[valid], Ts[valid]) < MAX_ATE
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # sharding needs a process group of that size, launched by torchrun
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         tpipe.resume_sfm(partial, options=dataclasses.replace(opt, n_devices=2),
                          verbose=False, device="cpu")
 

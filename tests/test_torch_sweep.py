@@ -5,10 +5,11 @@ from a seed with numpy), each with its own random stream, on the CPU.
 The two packages cannot share RANSAC draws, so they are held to outcomes:
 every frame registered and an ATE under 0.02 (the trajectory is 2.75 long;
 keypoints carry 0.3 px of noise at a focal length of 240). The port's two
-loop forms must agree on the registered count. What the port does not
-carry yet (sharding) must raise ``NotImplementedError`` naming its ROADMAP
-item; ``checkpoint_path`` is carried and writes the scene between
-segments, and explicit map-refinement rounds run."""
+loop forms must agree on the registered count. Sharding without a process
+group of that size raises a ``ValueError`` that says how to launch (the
+sharded path itself runs in tests/test_torch_parallel.py);
+``checkpoint_path`` is carried and writes the scene between segments, and
+explicit map-refinement rounds run."""
 
 import numpy as np
 import pytest
@@ -149,19 +150,19 @@ def test_sweep_step_limit_segments_and_exclusion(sequence):
 
 
 def test_what_is_not_ported_raises(sequence, tmp_path):
-    """Sharding raises; checkpoints and the map-refinement rounds are
-    carried (the loop-closing stage, which needs long-range edges, runs in
-    tests/test_torch_loop.py)."""
+    """Sharding without a process group raises; checkpoints and the
+    map-refinement rounds are carried (the loop-closing stage, which needs
+    long-range edges, runs in tests/test_torch_loop.py)."""
     uv, dsc, vis, intr, Ts = sequence
 
     def run(**kw):
         return tpipe.run_sfm(uv, dsc, vis, SIZE, intr=intr, device="cpu",
                              options=tpipe.SfmOptions(**{**OPTS, **kw}))
 
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
         run(n_devices=2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tpipe._refuse_unported(tpipe.SfmOptions(n_devices=4))
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
+        tpipe._mesh(tpipe.SfmOptions(n_devices=4), torch.device("cpu"))
     # scene checkpoints are ported: the sweep writes one between segments
     ckpt = tmp_path / "scene.npz"
     scene, stats = run(checkpoint_path=str(ckpt))
