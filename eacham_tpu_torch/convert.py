@@ -14,6 +14,9 @@ reference's ``lightglue.save_params`` writes them
 shipped ``.npz`` and a flattened parameter tree of the reference both go
 in. Convolution kernels move from [kh, kw, in, out] to [out, in, kh, kw],
 dense kernels from [in, out] to [out, in]; values are cast to fp32.
+``superpoint_to_numpy`` and ``lightglue_to_numpy`` are their inverses: a
+module back to that flat dict, in the reference's layouts and the
+module's dtype.
 """
 
 from __future__ import annotations
@@ -140,3 +143,47 @@ def lightglue_from_numpy(flat, n_layers: int) -> LightGlueMatcher:
     _assign(net.desc_sim_gain, _take(flat, used, "desc_sim_gain"), ("desc_sim_gain",))
     _require_all_used(flat, used, "lightglue")
     return net.eval()
+
+
+def _put(flat: dict, value: torch.Tensor, *names: str) -> None:
+    flat[_key(*names)] = value.detach().cpu().numpy()
+
+
+def _dump_conv(conv: torch.nn.Conv2d, flat, *path: str) -> None:
+    _put(flat, conv.weight.permute(2, 3, 1, 0).contiguous(), *path, "kernel")
+    _put(flat, conv.bias, *path, "bias")
+
+
+def _dump_dense(lin: torch.nn.Linear, flat, *path: str) -> None:
+    _put(flat, lin.weight.t().contiguous(), *path, "kernel")
+    _put(flat, lin.bias, *path, "bias")
+
+
+def superpoint_to_numpy(net: SuperPointNet) -> dict:
+    """SuperPointNet -> flat dict of numpy arrays keyed and laid out as the
+    reference's parameter tree (the inverse of ``superpoint_from_numpy``)."""
+    flat: dict = {}
+    for stage in ("c1", "c2", "c3", "c4"):
+        for half in "ab":
+            _dump_conv(getattr(net.backbone, stage + half), flat, "backbone", stage + half)
+    for name in ("det1", "det2", "desc1", "desc2"):
+        _dump_conv(getattr(net, name), flat, name)
+    return flat
+
+
+def lightglue_to_numpy(net: LightGlueMatcher) -> dict:
+    """LightGlueMatcher -> flat dict of numpy arrays keyed and laid out as
+    the reference's parameter tree (the inverse of ``lightglue_from_numpy``)."""
+    flat: dict = {}
+    for name, mod in net.named_children():
+        if isinstance(mod, AttentionBlock):
+            for sub in ("q", "k", "v", "proj", "mlp1", "mlp2"):
+                _dump_dense(getattr(mod, sub), flat, name, sub)
+            for sub in ("ln_x", "ln_y", "ln_m"):
+                ln = getattr(mod, sub)
+                _put(flat, ln.weight, name, sub, "scale")
+                _put(flat, ln.bias, name, sub, "bias")
+        else:
+            _dump_dense(mod, flat, name)
+    _put(flat, net.desc_sim_gain, "desc_sim_gain")
+    return flat

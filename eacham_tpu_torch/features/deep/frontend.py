@@ -33,19 +33,6 @@ from eacham_tpu_torch.sfm.matches import (
 PAIR_CHUNK = 32
 
 
-def _random_init(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """The reference's initialisation of dense and convolution layers
-    (lecun-normal kernels, zero biases) from an explicit generator; the
-    LayerNorms and the similarity gain are built at their initial values."""
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
-                fan_in = m.weight[0].numel()
-                m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
-                               / fan_in ** 0.5)
-                m.bias.zero_()
-
-
 def load_frontend_params(weights_dir=None, generator: torch.Generator | None = None,
                          device: str | torch.device | None = "cuda"):
     """Load the shipped (or ``weights_dir``-supplied) deep-frontend weights.
@@ -68,22 +55,22 @@ def load_frontend_params(weights_dir=None, generator: torch.Generator | None = N
             if line.startswith("n_layers"):
                 n_layers = int(line.split("=")[1])
 
-    def one(fname, from_numpy, blank):
+    def one(fname, from_numpy, init):
         path = wdir / fname
         if path.exists():
             with np.load(path) as data:
                 model = from_numpy({k: data[k] for k in data.files})
             model.weights_path = str(path)
         else:
-            model = blank().eval()
-            _random_init(model, generator)
+            model = init().eval()
             model.weights_path = None
         return model.to(dev).requires_grad_(False)
 
-    superpoint = one("superpoint.npz", convert.superpoint_from_numpy, sp.SuperPointNet)
+    superpoint = one("superpoint.npz", convert.superpoint_from_numpy,
+                     lambda: sp.init_params(generator))
     matcher = one("lightglue.npz",
                   lambda flat: convert.lightglue_from_numpy(flat, n_layers),
-                  lambda: lg.LightGlueMatcher(n_layers=n_layers))
+                  lambda: lg.init_params(generator, n_layers=n_layers))
     return superpoint, matcher, n_layers
 
 

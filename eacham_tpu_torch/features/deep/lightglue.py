@@ -11,15 +11,20 @@ center, 256-d descriptors. Outputs: per-keypoint match index + score;
 matches kept when score > threshold and mutual. Module names follow the
 reference's parameter tree (``self0_0`` ... ``match1``,
 ``desc_sim_gain``), so ``convert.lightglue_from_numpy`` carries its
-weights across.
+weights across. ``init_params`` initialises it as flax does;
+``save_params`` / ``load_params`` write and read the reference's ``.npz``
+layout for either network, so a file written by either package loads in
+the other.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from eacham_tpu_torch.features.deep.superpoint import SuperPointNet, lecun_init_
 from eacham_tpu_torch.ops.attention import attention
 
 DIM = 256
@@ -169,3 +174,51 @@ def match_deep(model: LightGlueMatcher, kps0, desc0, mask0, kps1, desc1, mask1,
     scores, _, _ = model(kps0, desc0, mask0, kps1, desc1, mask1)
     idx, valid = extract_matches(scores, mask0, mask1, threshold)
     return idx, valid, scores
+
+
+def init_params(generator: torch.Generator, n_layers: int = 6, n_kps: int = 64) -> LightGlueMatcher:
+    """A LightGlueMatcher initialised as the reference's ``init_params`` does
+    (on the CPU): lecun-normal dense kernels, zero biases, LayerNorm scales 1
+    and biases 0, ``desc_sim_gain`` 5. ``n_kps`` is the reference's dummy
+    input size: it shapes no parameter."""
+    del n_kps
+    return lecun_init_(LightGlueMatcher(n_layers=n_layers), generator)
+
+
+def save_params(path, model: nn.Module) -> None:
+    """Write a SuperPointNet's or LightGlueMatcher's parameters to ``path``
+    as the reference's ``save_params`` does: one array per leaf, keyed by
+    its path (``"['params']/['self0_0']/['q']/['kernel']"``), in the
+    reference's layouts and in the module's dtype. The path is the caller's."""
+    from eacham_tpu_torch import convert
+
+    if isinstance(model, LightGlueMatcher):
+        flat = convert.lightglue_to_numpy(model)
+    elif isinstance(model, SuperPointNet):
+        flat = convert.superpoint_to_numpy(model)
+    else:
+        raise TypeError(f"no parameter layout for {type(model).__name__}")
+    np.savez(path, **dict(sorted(flat.items())))
+
+
+def load_params(path, like: nn.Module, dtype=None) -> nn.Module:
+    """A new module of ``like``'s kind (and depth), on ``like``'s device in
+    eval mode, holding the parameters of an ``.npz`` written by either
+    package's ``save_params``. ``dtype`` (a torch or numpy dtype): cast on
+    the host before the copy to the device. Every array of the file must
+    have its place in the module."""
+    from eacham_tpu_torch import convert
+
+    with np.load(path) as data:
+        flat = {k: data[k] for k in data.files}
+    if isinstance(like, LightGlueMatcher):
+        model = convert.lightglue_from_numpy(flat, like.n_layers)
+    elif isinstance(like, SuperPointNet):
+        model = convert.superpoint_from_numpy(flat)
+    else:
+        raise TypeError(f"no parameter layout for {type(like).__name__}")
+    if dtype is not None:
+        if not isinstance(dtype, torch.dtype):
+            dtype = torch.from_numpy(np.zeros(0, dtype)).dtype
+        model = model.to(dtype)
+    return model.to(next(like.parameters()).device)

@@ -10,7 +10,8 @@ Public layouts are the reference's: images [B, H, W] in [0, 1], descriptor
 field [B, H/8, W/8, 256], outputs (xy [B, K, 2], desc [B, K, 256], score
 [B, K], mask [B, K]). Inside the network tensors are NCHW. Module names
 follow the reference's parameter tree (``backbone.c1a`` ... ``desc2``), so
-``convert.superpoint_from_numpy`` carries its weights across.
+``convert.superpoint_from_numpy`` carries its weights across, and
+``init_params`` initialises it as flax does (``lecun_init_``).
 """
 
 from __future__ import annotations
@@ -188,3 +189,34 @@ def extract_deep(
     desc = _bilinear_field(desc_field, xy_soft[..., 0] / CELL, xy_soft[..., 1] / CELL)
     desc = desc / (torch.linalg.vector_norm(desc, dim=-1, keepdim=True) + 1e-8)
     return xy, desc, torch.where(mask, score, 0.0), mask
+
+
+# flax's lecun_normal draws from a normal cut at +-2 of its own sigma and
+# inflates sigma by 1 / 0.8796 (the std of the cut unit normal), so that
+# the drawn kernel has std 1/sqrt(fan_in)
+_TRUNC_STD = 0.87962566103423978
+
+
+def lecun_init_(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every dense and convolution layer of ``model`` in place as
+    flax does by default: lecun-normal kernels (std 1/sqrt(fan_in), from a
+    normal truncated at +-2 sigma) and zero biases. The bits differ from the
+    reference's threefry draws; the distribution is the same. Returns
+    ``model``."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (nn.Linear, nn.Conv2d)):
+                fan_in = m.weight[0].numel()
+                sigma = fan_in ** -0.5 / _TRUNC_STD
+                nn.init.trunc_normal_(m.weight, std=sigma, a=-2 * sigma, b=2 * sigma,
+                                      generator=generator)
+                m.bias.zero_()
+    return model
+
+
+def init_params(generator: torch.Generator, height: int = 64, width: int = 64) -> SuperPointNet:
+    """A SuperPointNet initialised as the reference's ``init_params`` does
+    (on the CPU). ``height`` and ``width`` are the reference's dummy input
+    size: they shape no parameter."""
+    del height, width
+    return lecun_init_(SuperPointNet(), generator)

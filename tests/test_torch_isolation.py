@@ -17,7 +17,7 @@ import eacham_tpu_torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "eacham_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "eacham_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eacham_tpu")
 
 
 def _modules():
@@ -34,6 +34,7 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
             "eacham_tpu_torch.features.deep.superpoint",
             "eacham_tpu_torch.features.deep.lightglue",
             "eacham_tpu_torch.features.deep.frontend",
+            "eacham_tpu_torch.features.deep.train",
             "eacham_tpu_torch.geometry.pnp", "eacham_tpu_torch.ba.core",
             "eacham_tpu_torch.sfm.triangulate", "eacham_tpu_torch.sfm.filtering",
             "eacham_tpu_torch.sfm.device_loop", "eacham_tpu_torch.sfm.pipeline",
