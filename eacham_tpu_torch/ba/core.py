@@ -23,8 +23,13 @@ observation axis first: residuals [O, 2], Jacobians [O, 2, 6] / [O, 2, 3] /
 [O, 2, 2]. (The reference keeps a second, transposed copy of every such
 function and chunks its segment sums, both for the TPU's (8, 128) tiling of
 minor dimensions; neither concerns this card.) Segment sums over cameras
-and landmarks are ``index_add_``: float atomics on the card, so sums differ
-from run to run in their last bits.
+and landmarks run in a fixed order, so one problem gives the same bits on
+every run: each ``refine_ba`` call lays its observations out once
+(``_layout``) and every sum of the call reuses that layout. Camera sums
+reduce equal runs in place, or each camera's rows gathered into a padded
+row; landmark sums take the rows sorted by (landmark, camera) and reduce
+each landmark's run in row order (``torch.segment_reduce``). No float
+atomics (``index_add_``) are left.
 
 Everything is fp32 (TF32 off, see ``eacham_tpu_torch.fp``). The LM loop is a
 host loop; its state stays on the device, the accept step is a
@@ -220,16 +225,89 @@ def _reduce(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
-def _seg_outer(J1, J2, idx, n, group=None):
+class _Segments(NamedTuple):
+    """How one ``refine_ba`` call sums per-observation rows into ``n``
+    segments, in an order that the layout alone fixes. One of three forms:
+    ``order`` and ``offsets``, the live rows in segment order and each
+    segment's run between ``offsets``, summed from its first row to its
+    last (many short runs: landmarks, (landmark, camera) pairs);
+    ``slots`` [n, D], each segment's rows padded with a zero row, summed
+    across (few long runs: cameras); or neither, ``n`` runs of equal length
+    in place."""
+
+    n: int
+    order: torch.Tensor | None = None
+    offsets: torch.Tensor | None = None
+    slots: torch.Tensor | None = None
+
+
+class _Layout(NamedTuple):
+    cam: _Segments                  # per camera
+    pt: _Segments                   # per landmark
+    pair: _Segments | None          # per (landmark, camera): the dense solver's W
+
+
+def _layout(p: BAProblem, pairs: bool) -> _Layout:
+    """The segment layouts of one ``refine_ba`` call, built once before the
+    LM loop. Masked rows belong to no segment, except in equal runs.
+
+    Camera axis. The uncompacted window of ``sfm/scene.ba_problem_windowed``
+    is ``C`` runs of exactly ``K`` rows (``arange(C).repeat_interleave(K)``):
+    those are summed in place, masked rows with the rest (``_obs_linearize``
+    weighs them by 0, so they add exact zeros). Any other order (the
+    compacted problems, whose rows follow ascending ``pick // K`` and end
+    in a padded tail on camera 0, or any ``BAProblem``) is sorted by camera
+    and each camera's run gathered into a padded row: a camera holds
+    hundreds of rows, too many for one thread to sum in turn.
+
+    Landmark axis. Rows are sorted once by (landmark, camera), stably, and
+    the masked ones cut off, so that the padding's landmark 0 keeps its own
+    observations only; the same order gives the (landmark, camera) runs of
+    W. Reads two numbers to the host (a third, the longest camera run,
+    where the cameras are not in equal runs)."""
+    N, L = p.poses.shape[0], p.points.shape[0]
+    O = p.obs_cam.shape[0]
+    dev = p.obs_cam.device
+    run = O // N if O % N == 0 else 0
+    equal = ((p.obs_cam == torch.arange(O, device=dev) // run).all() if run
+             else p.obs_mask.new_zeros(()))
+    key, order = torch.sort(torch.where(p.obs_mask, p.obs_pt * N + p.obs_cam, L * N),
+                            stable=True)
+    equal, n_live = torch.stack([equal.long(), p.obs_mask.sum()]).tolist()
+    key, order = key[:n_live], order[:n_live]
+    pt = _Segments(L, order, torch.searchsorted(key, torch.arange(L + 1, device=dev) * N))
+    pair = (_Segments(L * N, order, torch.searchsorted(key, torch.arange(L * N + 1, device=dev)))
+            if pairs else None)
+    if equal:
+        return _Layout(_Segments(N), pt, pair)
+    key, order = torch.sort(torch.where(p.obs_mask, p.obs_cam, N), stable=True)
+    start = torch.searchsorted(key, torch.arange(N + 1, device=dev))
+    count = start.diff()
+    j = torch.arange(int(count.max()), device=dev)
+    rows = order[(start[:-1, None] + j).clamp(max=max(O - 1, 0))]
+    return _Layout(_Segments(N, slots=torch.where(j < count[:, None], rows, O)), pt, pair)
+
+
+def _seg_sum(x: torch.Tensor, seg: _Segments, group=None) -> torch.Tensor:
+    """Per-segment sums of the rows of ``x`` [O, ...] -> [n, ...], in
+    ``seg``'s fixed order."""
+    if seg.offsets is not None:
+        out = torch.segment_reduce(x[seg.order], "sum", offsets=seg.offsets, unsafe=True)
+    elif seg.slots is not None:
+        out = torch.cat([x, x.new_zeros((1,) + x.shape[1:])])[seg.slots].sum(1)
+    else:
+        out = x.reshape(seg.n, -1, *x.shape[1:]).sum(1)
+    return _reduce(out, group)
+
+
+def _seg_outer(J1, J2, seg: _Segments, group=None):
     """sum over observations of J1^T J2 per segment: [O, 2, a], [O, 2, b] -> [n, a, b]."""
-    out = J1.new_zeros((n, J1.shape[2], J2.shape[2]))
-    return _reduce(out.index_add_(0, idx, torch.einsum("oki,okj->oij", J1, J2)), group)
+    return _seg_sum(torch.einsum("oki,okj->oij", J1, J2), seg, group)
 
 
-def _seg_vec(J, t, idx, n, group=None):
+def _seg_vec(J, t, seg: _Segments, group=None):
     """sum over observations of J^T t per segment: [O, 2, a], [O, 2] -> [n, a]."""
-    out = J.new_zeros((n, J.shape[2]))
-    return _reduce(out.index_add_(0, idx, torch.einsum("oki,ok->oi", J, t)), group)
+    return _seg_sum(torch.einsum("oki,ok->oi", J, t), seg, group)
 
 
 def _huber_rho(n, k):
@@ -278,7 +356,7 @@ def _point_prior_block(j_pt: torch.Tensor) -> torch.Tensor:
     return torch.diag_embed(j_pt * j_pt)
 
 
-def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam, group=None):
+def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam, lay: _Layout, group=None):
     """Blocks of the linearized system shared by both Schur solvers."""
     N = p.poses.shape[0]
     L = p.points.shape[0]
@@ -288,8 +366,16 @@ def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam, group=None):
     cam_w = cam_upd[:, None].to(r.dtype)      # [N, 1]
     pt_w = p.pt_in_ba[:, None].to(r.dtype)
 
-    U_obs = _seg_outer(Jc, Jc, p.obs_cam, N, group)                # [N, 6, 6]
-    V_obs = _seg_outer(Jp, Jp, p.obs_pt, L, group)                 # [L, 3, 3]
+    # every camera sum of the linearization in one pass, and every landmark
+    # sum in another: Jc^T [Jc | Jp | r | Jk] and Jp^T [Jp | r | Jk] per
+    # observation (the Jc^T Jp columns are W's rows, summed per camera for
+    # nothing but kept beside the rest for the dense solver's W)
+    A = torch.cat([Jc, Jp, r[:, :, None], Jk], 2)                  # [O, 2, 12]
+    JcA = torch.einsum("oki,okj->oij", Jc, A)                      # [O, 6, 12]
+    cam_sums = _seg_sum(JcA, lay.cam, group)                       # [N, 6, 12]
+    pt_sums = _seg_outer(Jp, A[:, :, 6:], lay.pt, group)           # [L, 3, 6]
+    U_obs = cam_sums[:, :, :6]                                     # [N, 6, 6]
+    V_obs = pt_sums[:, :, :3]                                      # [L, 3, 3]
     Ukk_obs = _reduce(torch.einsum("oki,okj->ij", Jk, Jk), group)  # [2, 2]
 
     U = _damp(U_obs + torch.diag_embed(j_pose * j_pose + j_abs * j_abs), lam, cam_upd)
@@ -304,17 +390,18 @@ def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam, group=None):
 
     Vinv = inv3x3(V)                                               # [L, 3, 3]
 
-    b_c = (-_seg_vec(Jc, r, p.obs_cam, N, group) - r_pose * j_pose - r_abs * j_abs) * cam_w
-    b_p = (-_seg_vec(Jp, r, p.obs_pt, L, group) - r_pt * j_pt) * pt_w
+    b_c = (-cam_sums[:, :, 9] - r_pose * j_pose - r_abs * j_abs) * cam_w
+    b_p = (-pt_sums[:, :, 3] - r_pt * j_pt) * pt_w
     b_k = -_reduce(torch.einsum("oki,ok->i", Jk, r), group) - r_k * j_k
 
     # reduced right-hand side: b~ = b_cams - W V^-1 b_p
     h = torch.einsum("lij,lj->li", Vinv, b_p)                      # [L, 3]
     t = torch.einsum("oki,oi->ok", Jp, h[p.obs_pt])                # [O, 2]
-    b_red_c = b_c - _seg_vec(Jc, t, p.obs_cam, N, group) * cam_w
+    b_red_c = b_c - _seg_vec(Jc, t, lay.cam, group) * cam_w
     b_red_k = b_k - _reduce(torch.einsum("oki,ok->i", Jk, t), group)
-    return dict(N=N, L=L, group=group, cam_upd=cam_upd, cam_w=cam_w, pt_w=pt_w,
-                U=U, V=V, Ukk=Ukk, Vinv=Vinv,
+    return dict(N=N, L=L, group=group, lay=lay, cam_upd=cam_upd, cam_w=cam_w, pt_w=pt_w,
+                U=U, V=V, Ukk=Ukk, Vinv=Vinv, JcJp=JcA[:, :, 6:9],
+                Uck=cam_sums[:, :, 10:], Wk=pt_sums[:, :, 4:].transpose(1, 2),
                 extra_diag_c=extra_diag_c, extra_diag_k=extra_diag_k,
                 b_c=b_c, b_p=b_p, b_k=b_k, b_red_c=b_red_c, b_red_k=b_red_k)
 
@@ -322,34 +409,32 @@ def _blocks(r, Jc, Jp, Jk, priors, p: BAProblem, lam, group=None):
 def _back_substitute(d_cam, d_k, blk, Jc, Jp, Jk, p: BAProblem):
     """Landmark updates given the camera and intrinsics updates."""
     t = torch.einsum("okj,oj->ok", Jc, d_cam[p.obs_cam]) + Jk @ d_k
-    g = blk["b_p"] - _seg_vec(Jp, t, p.obs_pt, blk["L"], blk["group"])
+    g = blk["b_p"] - _seg_vec(Jp, t, blk["lay"].pt, blk["group"])
     return torch.einsum("lij,lj->li", blk["Vinv"], g) * blk["pt_w"]
 
 
 def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
-                       group=None):
+                       lay: _Layout, group=None):
     """One linear solve through the materialized reduced camera system.
 
-    Scatters W = [L, N, 6, 3] in one ``index_add_``, forms S = U - W V^-1
-    W^T as one [6N, 3L] x [3L, 6N] product, and solves the dense [6N + 2]
-    system: a handful of large operations instead of ``cg_iters``
+    Sums W = [L, N, 6, 3] per (landmark, camera) in one pass, forms S = U -
+    W V^-1 W^T as one [6N, 3L] x [3L, 6N] product, and solves the dense
+    [6N + 2] system: a handful of large operations instead of ``cg_iters``
     sequential operator applications.
     Returns (d_cam [N, 6], d_k [2], d_pt [L, 3]).
     """
-    blk = _blocks(r, Jc, Jp, Jk, priors, p, lam, group)
+    blk = _blocks(r, Jc, Jp, Jk, priors, p, lam, lay, group)
     N, L = blk["N"], blk["L"]
     cam_w, Vinv = blk["cam_w"], blk["Vinv"]
+    Wk, Uck = blk["Wk"], blk["Uck"]                                   # [L, 2, 3], [N, 6, 2]
     n6 = 6 * N
 
     # frozen cameras contribute nothing to the reduced system (their updates
-    # are pinned to zero), as in the implicit operator
-    Jc_act = Jc * cam_w[p.obs_cam][:, None, :]
-    W = _reduce(Jc.new_zeros((L * N, 6, 3)).index_add_(
-        0, p.obs_pt * N + p.obs_cam, torch.einsum("oki,okj->oij", Jc_act, Jp)), group)
-    Wk = _seg_outer(Jk, Jp, p.obs_pt, L, group)                       # [L, 2, 3]
-    Uck = _seg_outer(Jc_act, Jk, p.obs_cam, N, group)                 # [N, 6, 2]
+    # are pinned to zero), as in the implicit operator; their rows of Uck
+    # are cut below, with S_ck's
+    W = _seg_sum(blk["JcJp"], lay.pair, group).view(L, N, 6, 3) * cam_w[None, :, :, None]
 
-    W_pack = W.view(L, N, 6, 3).permute(3, 0, 1, 2).reshape(3, L, n6)
+    W_pack = W.permute(3, 0, 1, 2).reshape(3, L, n6)
     Y_pack = torch.einsum("blq,lbc->clq", W_pack, Vinv)               # [3, L, 6N]
     Yk = torch.einsum("lab,lbc->lac", Wk, Vinv)                       # [L, 2, 3]
 
@@ -403,7 +488,7 @@ def _block_diagonal(U: torch.Tensor) -> torch.Tensor:
 
 
 def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
-                     group=None):
+                     lay: _Layout, group=None):
     """One linear solve with the reduced system applied matrix-free.
 
     Eliminates the landmark blocks, runs block-Jacobi PCG on the reduced
@@ -412,7 +497,7 @@ def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
     reads one flag per step.
     Returns (d_cam [N, 6], d_k [2], d_pt [L, 3]).
     """
-    blk = _blocks(r, Jc, Jp, Jk, priors, p, lam, group)
+    blk = _blocks(r, Jc, Jp, Jk, priors, p, lam, lay, group)
     N, L = blk["N"], blk["L"]
     cam_upd, cam_w, pt_w = blk["cam_upd"], blk["cam_w"], blk["pt_w"]
     Vinv = blk["Vinv"]
@@ -426,10 +511,10 @@ def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
     def S_mv(vc, vk):
         vc_act = vc * cam_w
         t = torch.einsum("okj,oj->ok", Jc, vc_act[p.obs_cam]) + Jk @ vk     # [O, 2]
-        g = _seg_vec(Jp, t, p.obs_pt, L, group)                             # [L, 3]
+        g = _seg_vec(Jp, t, lay.pt, group)                                  # [L, 3]
         hh = torch.einsum("lij,lj->li", Vinv, g) * pt_w
         tu = t - torch.einsum("oki,oi->ok", Jp, hh[p.obs_pt])
-        Sc = _seg_vec(Jc, tu, p.obs_cam, N, group) + extra_diag_c * vc_act
+        Sc = _seg_vec(Jc, tu, lay.cam, group) + extra_diag_c * vc_act
         Sc = torch.where(cam_upd[:, None], Sc, vc)      # identity rows for frozen
         Sk = _reduce(torch.einsum("oki,ok->i", Jk, tu), group) + extra_diag_k * vk
         return Sc, Sk
@@ -466,11 +551,11 @@ def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
 
 
 def _dogleg_step(r, Jc, Jp, Jk, priors, p: BAProblem, delta, cfg: BAConfig, solve,
-                 group=None):
+                 lay: _Layout, group=None):
     """Powell dogleg: blend the Gauss-Newton step with the Cauchy
     (steepest-descent) step inside the trust radius ``delta``.
     Returns (d_cam, d_k, d_pt, model_decrease)."""
-    blk = _blocks(r, Jc, Jp, Jk, priors, p, 1e-8, group)
+    blk = _blocks(r, Jc, Jp, Jk, priors, p, 1e-8, lay, group)
     (_, j_pose), (_, j_pt), (_, j_k), (_, j_abs) = priors
     # negative gradient g = b (the blocks hold b = -J^T r, masked)
     g = (blk["b_c"], blk["b_k"], blk["b_p"])
@@ -492,7 +577,7 @@ def _dogleg_step(r, Jc, Jp, Jk, priors, p: BAProblem, delta, cfg: BAConfig, solv
     sd = tuple(alpha * x for x in g)
     sd_norm = torch.sqrt(alpha * alpha * g_norm2)
 
-    gn = solve(r, Jc, Jp, Jk, priors, p, 1e-8, cfg, group)
+    gn = solve(r, Jc, Jp, Jk, priors, p, 1e-8, cfg, lay, group)
     gn_norm = torch.sqrt(dot_all(gn, gn))
 
     # blend factor of the segment sd -> gn where it meets the trust boundary
@@ -543,8 +628,10 @@ def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig(), group=None):
         # the state the anchors exist to correct
         cfg = cfg._replace(use_pose_priors=False, use_point_priors=False)
     anchors = (p.poses, p.points, p.intr)
-    solve = _solve_schur_dense if use_dense_solver(p, cfg) else _solve_schur_pcg
+    dense = use_dense_solver(p, cfg)
+    solve = _solve_schur_dense if dense else _solve_schur_pcg
     dogleg = cfg.method.lower() == "dogleg"
+    lay = _layout(p, pairs=dense)       # every sum of the call reuses it
 
     poses, points, intr = p.poses, p.points, p.intr
     cost0 = ba_cost(poses, points, intr, p, anchors, cfg, group)
@@ -557,9 +644,9 @@ def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig(), group=None):
         r, Jc, Jp, Jk = _obs_linearize(poses, points, intr, p)
         if dogleg:
             d_cam, d_k, d_pt, m_dec = _dogleg_step(r, Jc, Jp, Jk, priors, p, lam, cfg, solve,
-                                                   group)
+                                                   lay, group)
         else:
-            d_cam, d_k, d_pt = solve(r, Jc, Jp, Jk, priors, p, lam, cfg, group)
+            d_cam, d_k, d_pt = solve(r, Jc, Jp, Jk, priors, p, lam, cfg, lay, group)
 
         new_poses = exp_se3(d_cam) @ poses
         new_points = points + d_pt

@@ -1,10 +1,11 @@
 """Sharded bundle adjustment (port of eacham_tpu/parallel/ba.py).
 
 The observation table is split over the mesh's ranks; each rank computes
-its partial segment sums, and ``refine_ba``'s reduction (an ``all_reduce``
-over the mesh's group, ba/core.py ``_reduce``) makes every rank hold the
-full reduced camera system. Poses, points and intrinsics are replicated,
-so every rank computes the same LM trajectory.
+its partial segment sums, in a fixed order over the layout of its own
+slice (ba/core.py ``_layout``), and ``refine_ba``'s reduction (an
+``all_reduce`` over the mesh's group, ``_reduce``) makes every rank hold
+the full reduced camera system. Poses, points and intrinsics are
+replicated, so every rank computes the same LM trajectory.
 """
 
 from __future__ import annotations
@@ -19,9 +20,11 @@ _OBS = ("obs_cam", "obs_pt", "obs_uv", "obs_mask")
 
 
 def refine_ba_sharded(prob: BAProblem, cfg: BAConfig, mesh: Mesh):
-    """Distributed ``refine_ba``: same results up to the order of the sums,
-    the observation axis sharded (padding rows carry ``obs_mask=False``).
-    Every rank passes the whole problem and keeps its own block."""
+    """Distributed ``refine_ba``, the observation axis sharded (padding rows
+    carry ``obs_mask=False``): the same results up to the order in which
+    the ranks' partial sums are added, and on one rank the same bits as
+    ``refine_ba``. Every rank passes the whole problem and keeps its own
+    block."""
     O = prob.obs_cam.shape[0]
     pad, lo, hi = shard_rows(O, mesh)
     local = {}

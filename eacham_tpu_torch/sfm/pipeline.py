@@ -283,8 +283,10 @@ def sync_ranks(mesh, scene: Scene, excluded=None, *flags, fields=_SCENE_STATE):
     [flags]).
 
     Each rank runs the replicated stages (the epipolar verification, the
-    initial pair, the sweep) on its own, and float atomics on the card can
-    make their results part. So every decision that leads to a collective
+    initial pair, the sweep) on its own. One card gives one result per
+    input, but nothing holds cards of other models (their libraries pick
+    other kernels) to the same bits, so the ranks' results may part. So
+    every decision that leads to a collective
     is taken on rank 0's values: all ranks run the same collectives in the
     same order, and rank 0's state holds from there on.
     """

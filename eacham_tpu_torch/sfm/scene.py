@@ -147,10 +147,12 @@ def lm_observer_counts(scene: Scene) -> torch.Tensor:
     obs_on = (scene.kp2lm >= 0) & scene.kp_mask & scene.pose_valid[:, None]
     L = scene.lm_capacity
     flat_lm = torch.where(obs_on, scene.kp2lm, L).reshape(-1).long()
-    # (bincount would read the largest id back to the host first)
-    counts = torch.zeros(L + 1, dtype=torch.float32, device=flat_lm.device)
-    counts.scatter_add_(0, flat_lm, torch.ones_like(flat_lm, dtype=torch.float32))
-    return counts[:L]
+    # (bincount would read the largest id back to the host first); counted
+    # in int32, so that no float sum on the SfM paths depends on the order
+    # of the card's atomics
+    counts = torch.zeros(L + 1, dtype=torch.int32, device=flat_lm.device)
+    counts.scatter_add_(0, flat_lm, torch.ones_like(flat_lm, dtype=torch.int32))
+    return counts[:L].float()
 
 
 def ba_problem_from_scene(scene: Scene, cam_in_ba: torch.Tensor,

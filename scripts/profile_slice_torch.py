@@ -18,7 +18,9 @@ device-busy share of the profiled run (device time summed over all
 kernels and copies, over its wall time), and the device time by kernel.
 With ``--full`` one more run times the sweep's and the finalization's
 building blocks (next-best-view, PnP, triangulation, window build, BA,
-pruning) under synchronized timers. Needs a CUDA card.
+pruning) under synchronized timers (calls, seconds, ms a call), and the
+profiled run's launches are also given per registered frame. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -95,7 +97,7 @@ def sweep_components(images, intr, dev):
                (device_loop, "triangulate_frame"), (device_loop, "local_neighbors"),
                (device_loop, "ba_problem_windowed"), (device_loop, "refine_ba"),
                (pipeline, "prune_observations"), (pipeline, "ba_problem_windowed"),
-               (pipeline, "refine_ba")]
+               (pipeline, "refine_ba_sharded")]
     saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
     try:
         for mod, name, fn in saved:
@@ -163,10 +165,10 @@ def main():
     if args.full:
         totals, secs_c = sweep_components(images, intr, dev)
         print(f"building blocks under synchronized timers on {card} (that run: sweep "
-              f"{secs_c['sweep']:.4f} s, finalize {secs_c['finalize']:.4f} s); calls, seconds:",
-              flush=True)
+              f"{secs_c['sweep']:.4f} s, finalize {secs_c['finalize']:.4f} s); calls, seconds, "
+              "ms a call:", flush=True)
         for name, (calls, t) in sorted(totals.items(), key=lambda kv: -kv[1][1]):
-            print(f"  {name:32s} {calls:6d} {t:9.4f}", flush=True)
+            print(f"  {name:32s} {calls:6d} {t:9.4f} {1e3 * t / calls:9.3f}", flush=True)
 
     # kernels and copies only: an operator's device time repeats its kernels'
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -179,7 +181,9 @@ def main():
     busy_s = busy_us / 1e6
     print(f"profiled run: wall {secs['total']:.4f} s, device busy {busy_s:.4f} s "
           f"({len(kernels)} kernels and copies), idle share "
-          f"{1 - busy_s / secs['total']:.4f}", flush=True)
+          f"{1 - busy_s / secs['total']:.4f}"
+          + (f"; {len(kernels) / stats['registered']:.1f} kernels and copies a registered "
+             "frame" if args.full else ""), flush=True)
     by_name = {}
     for e in kernels:
         t, n = by_name.get(e.name, (0.0, 0))

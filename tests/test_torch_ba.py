@@ -252,7 +252,8 @@ def test_auto_solver_rule_is_the_reference_rule():
 @pytest.mark.parametrize("solver", ["dense", "pcg"])
 def test_cuda_refine_ba_matches_cpu(solver):
     """The card against the CPU on one problem: final cost rel 1e-3 (the
-    card's segment sums are float atomics, so the last bits differ)."""
+    card's products and reductions sum in another order than the CPU's,
+    so the last bits differ)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     d, _ = make_problem()

@@ -262,8 +262,8 @@ def test_run_sfm_on_two_ranks(ranks, single):
 
 
 def test_run_sfm_on_two_ranks_whose_sweeps_part(ranks, single):
-    """The ranks' sweeps part (rank 1's is perturbed, as float atomics on
-    the card can do): the run still ends on both ranks, rank 0's decisions
+    """The ranks' sweeps part (rank 1's is perturbed, as ranks on cards of
+    other models could): the run still ends on both ranks, rank 0's decisions
     and state hold, and both ranks return the same scene and statistics as
     the one-process run of the same options."""
     *_, gt = _sfm_inputs()
