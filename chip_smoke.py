@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (eacham_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--dump tables.npz] [--dump-deep tables_deep.npz]
-                          [--dump-loop loop.npz]
+                          [--dump-deep-world W ...] [--dump-loop loop.npz]
 
 1. prints the card's name and power limit;
 2. builds every CUDA kernel of the port from ``eacham_tpu_torch/csrc``
@@ -75,6 +75,20 @@
    - ``cli_deep``: the CLI with ``--frontend deep`` on the first 24 frames
      (all 276 pairs), held to DEEP_CLI_MIN_REGISTERED and DEEP_CLI_MAX_ATE,
      with every attention launch counted;
+   - ``deep_sfm`` (right after the deep path's checks, before ``cli_deep``):
+     scripts/bench_deep.py's recipe to its end on its five blob worlds
+     (seeds 0-4; worlds 1-4 rendered by a pool of processes, untimed), each
+     through the deep front half and ``run_sfm(match_tables=...)`` with
+     DEEP_OPTIONS, world 0 twice. One JSON line: per world the stage
+     seconds, registered frames, landmarks, ATE, the init pair and its pose
+     error, the global BA, the attention launches and the ``digest``; the
+     median ATE. Gate (bench_deep.py:172-174): every world at least 95 of
+     100 registered, median ATE < 0.1; exactly ceil(P / 32) * 4 * n_layers
+     attention launches and no ``match_pairs`` launch a world; world 0's
+     repeat equal bit for bit (features, tables, scene); kernel 3 against
+     its plain version on world 0's first chunk. Before it,
+     ``match_images_e2e`` on frames 0 and 1: 4 * n_layers attention
+     launches, the same matches as ``match_all_pairs_deep`` on that pair;
 7. drives the long-trajectory path at scripts/stress_500.py's recipe
    (``loop``): 500 frames of the surface world on the stress orbit, rendered
    by a pool of processes, ``extract_features(K=1024)`` -> ``run_sfm`` with
@@ -146,7 +160,9 @@
 
 The phases write what they make under ``chiprun_out/`` (images, configs,
 outputs, checkpoints). ``--dump`` / ``--dump-deep`` also save a path's match tables and
-ground-truth poses, the input of ``scripts/init_pair_spread_{jax,torch}.py``;
+ground-truth poses, the input of ``scripts/init_pair_spread_{jax,torch}.py``
+(``--dump-deep`` world 0's 6-tuple and the port's result, ``--dump-deep-world
+W`` also world W's: the input of ``scripts/deep_sfm_replay_{jax,torch}.py``);
 ``--dump-loop`` the loop phase's poses and loop measurements, the input of
 ``scripts/loop_replay_{jax,torch}.py``.
 
@@ -160,6 +176,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -595,15 +612,15 @@ def check_match_kernel(desc, mask, launches, card):
             "library_ms": None, "cold_ms": cold}
 
 
-def deep_stages(models, imgs, intr, dev):
-    """The deep path once, through the port's entry points, timed per
-    stage: images -> SuperPoint features -> LightGlue match tables over
-    windowed candidate pairs, epipolar-verified -> seeded two-view map.
-    Returns (xy, desc, mask, tables, scene, stats, seconds)."""
+def deep_front(models, imgs, intr, dev):
+    """The deep path's front half, through the port's entry points, timed
+    per stage: images -> SuperPoint features -> LightGlue match tables over
+    windowed candidate pairs, epipolar-verified (scripts/bench_deep.py's
+    recipe). Returns (xy, desc, mask, tables, t_extract, t_match)."""
     import torch
     from eacham_tpu_torch.features.deep.frontend import (
         build_match_tables_deep, extract_deep_batch)
-    from eacham_tpu_torch.sfm.pipeline import SfmOptions, initialize_sfm
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions
 
     superpoint, matcher = models
     opt = SfmOptions(**DEEP_OPTIONS)
@@ -618,11 +635,22 @@ def deep_stages(models, imgs, intr, dev):
         verify=(intr, torch.Generator(device=dev).manual_seed(DEEP_VERIFY_SEED),
                 opt.max_repr_error, opt.verify_hyps), device=dev)
     torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    return xy, desc, mask, tables, t1 - t0, time.perf_counter() - t1
+
+
+def deep_stages(models, imgs, intr, dev):
+    """The deep path's front half (``deep_front``), then the seeded
+    two-view map. Returns (xy, desc, mask, tables, scene, stats, seconds)."""
+    import torch
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions, initialize_sfm
+
+    t0 = time.perf_counter()
+    xy, desc, mask, tables, t_extract, t_match = deep_front(models, imgs, intr, dev)
     scene, stats = initialize_sfm(xy, desc, mask, image_size=(WIDTH, HEIGHT), intr=intr,
-                                  options=opt, device=dev, match_tables=tables)
+                                  options=SfmOptions(**DEEP_OPTIONS), device=dev,
+                                  match_tables=tables)
     torch.cuda.synchronize()
-    secs = dict(extract_deep=t1 - t0, match_deep=t2 - t1,
+    secs = dict(extract_deep=t_extract, match_deep=t_match,
                 init_pair=stats["seconds"]["init_pair"],
                 seed=stats["seconds"].get("seed", 0.0), total=time.perf_counter() - t0)
     return xy, desc, mask, tables, scene, stats, secs
@@ -694,18 +722,15 @@ def check_deep(models, out, launches, poses):
     require(secs["total"] < 120.0, f"the deep path took {secs['total']:.1f} s")
 
 
-def check_attention_kernel(models, out, launches, card):
-    """Kernel vs plain version on one chunk's q, k, v and mask as the main
-    path makes them (first self and first cross block), plus the ragged
-    and the fully masked cases; returns the kernel's JSON record."""
-    import torch
-    import torch.nn.functional as F
+def attention_vs_plain(matcher, xy, desc, mask, tables, tag):
+    """Kernel 3 against its plain version on the first chunk of pairs of a
+    deep match graph, as the matcher makes its inputs (the first self and
+    the first cross block), three runs with equal bits required. Returns
+    ({block: max abs err}, {block: (q, k, v, mask)})."""
     from eacham_tpu_torch.features.deep import lightglue as lg
     from eacham_tpu_torch.features.deep.frontend import PAIR_CHUNK
     from eacham_tpu_torch.ops import attention as at
 
-    xy, desc, mask, tables = out[:4]
-    dev = desc.device
     # replay the first chunk of pairs with the matcher's attention call recorded
     seen = []
     inner = lg.attention
@@ -718,11 +743,11 @@ def check_attention_kernel(models, out, launches, card):
     kps = lg.normalize_keypoints(xy, float(WIDTH), float(HEIGHT))
     lg.attention = record
     try:
-        lg.match_deep(models[1], kps[pi[:, 0]], desc[pi[:, 0]], mask[pi[:, 0]],
+        lg.match_deep(matcher, kps[pi[:, 0]], desc[pi[:, 0]], mask[pi[:, 0]],
                       kps[pi[:, 1]], desc[pi[:, 1]], mask[pi[:, 1]], threshold=DEEP_THRESHOLD)
     finally:
         lg.attention = inner
-    require(len(seen) == 4 * models[1].n_layers, f"{len(seen)} attention calls in one chunk")
+    require(len(seen) == 4 * matcher.n_layers, f"{len(seen)} attention calls in one chunk")
     cases = {"self": seen[0], "cross": seen[2]}
     errs = {}
     for name, (q, k, v, m) in cases.items():
@@ -731,11 +756,24 @@ def check_attention_kernel(models, out, launches, card):
         ref = at.masked_attention_plain(q, k, v, m)
         scale = max(1.0, float(v.abs().max()))
         errs[name] = float((o - ref).abs().max())
-        print(f"attention kernel vs plain, main-path {name} block {tuple(q.shape)}, "
+        print(f"attention kernel vs plain, {tag} {name} block {tuple(q.shape)}, "
               f"{REPEATS} equal runs: "
               f"max abs err {errs[name]:.3g} (limit 1e-5 x max(1, |v|max = {scale:.3g})), "
               f"live keys {int(m.sum())}/{m.numel()}", flush=True)
         require(errs[name] < 1e-5 * scale, f"attention kernel off by {errs[name]} ({name})")
+    return errs, cases
+
+
+def check_attention_kernel(models, out, launches, card):
+    """Kernel vs plain version on one chunk's q, k, v and mask as the main
+    path makes them (first self and first cross block), plus the ragged
+    and the fully masked cases; returns the kernel's JSON record."""
+    import torch
+    import torch.nn.functional as F
+    from eacham_tpu_torch.ops import attention as at
+
+    dev = out[1].device
+    errs, cases = attention_vs_plain(models[1], *out[:4], "main-path")
 
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn((2, 4, 130, 64), generator=g, device=dev)
@@ -789,6 +827,44 @@ def check_attention_kernel(models, out, launches, card):
             "launches": launches["masked_attention"], "max_abs_err": max(errs.values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def check_e2e(models, images, dev, card):
+    """``match_images_e2e`` on world 0's frames 0 and 1 (the launch counts
+    set to 0 just before and read just after): exactly 4 * n_layers
+    attention launches, and the same matches as ``match_all_pairs_deep`` on
+    that pair from the same two frames' features, one pair a pass (the
+    shapes ``match_images_e2e`` gives the matcher, so the bits can agree)."""
+    import torch
+    from eacham_tpu_torch.features.deep.frontend import (
+        extract_deep_batch, match_all_pairs_deep, match_images_e2e)
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    superpoint, matcher = models
+    imgs = torch.as_tensor(images[:2], device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    uv0, uv1, valid, mscore = match_images_e2e(superpoint, matcher, imgs, max_keypoints=DEEP_KPS,
+                                               threshold=DEEP_THRESHOLD, device=dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    xy, desc, _, mask = extract_deep_batch(superpoint, imgs, max_keypoints=DEEP_KPS, device=dev)
+    mj, mv, _ = match_all_pairs_deep(matcher, xy, desc, mask,
+                                     torch.tensor([[0, 1]], device=dev), (WIDTH, HEIGHT),
+                                     chunk=1, threshold=DEEP_THRESHOLD)
+    want = 4 * matcher.n_layers
+    same = (torch.equal(valid, mv[0]) and torch.equal(uv0, xy[0])
+            and torch.equal(uv1[valid], xy[1][mj[0].long()][valid]))
+    print(f"match_images_e2e on frames 0 and 1 on {card}: {int(valid.sum())} matches (mean "
+          f"score {float(mscore[valid].mean()):.4f}), {secs:.4f} s, launches {launches} "
+          f"(attention expected {want}), the same matches as match_all_pairs_deep: {same}",
+          flush=True)
+    require(launches["masked_attention"] == want and launches["match_pairs"] == 0,
+            f"match_images_e2e launches {launches}, want {want} of masked_attention")
+    require(int(valid.sum()) > 0 and same,
+            "match_images_e2e differs from match_all_pairs_deep on frames 0 and 1")
 
 
 def run_pair_path(desc, mask):
@@ -1278,25 +1354,33 @@ def _render_frames(args):
     return np.stack([render_view(blobs, T, intr, WIDTH, HEIGHT) for T in poses])
 
 
+def render_workers() -> int:
+    return max(1, min(os.cpu_count() or 1, 16))
+
+
+def render_in_pool(tasks, workers: int) -> list:
+    """``_render_frames`` over ``tasks`` in a pool of spawned processes;
+    the results in the tasks' order."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
+        return list(ex.map(_render_frames, tasks))
+
+
 def render_loop_workload():
     """The stress recipe's 500 frames, rendered by a pool of processes
     over the host's cores (untimed set-up)."""
-    import multiprocessing
-    import os
-    from concurrent.futures import ProcessPoolExecutor
-
     from eacham_tpu_torch.utils.synthetic import make_surface_scene, stress_orbit_poses
 
     f = 1.2 * max(WIDTH, HEIGHT)
     intr = np.array([f, f, WIDTH / 2, HEIGHT / 2], np.float32)
     blobs = make_surface_scene(np.random.default_rng(0), n_blobs=4000, jitter=0.05)
     poses = stress_orbit_poses(LOOP_FRAMES)
-    workers = max(1, min(os.cpu_count() or 1, 16))
+    workers = render_workers()
     tasks = [(blobs, poses[c], intr)
              for c in np.array_split(np.arange(LOOP_FRAMES), 4 * workers) if len(c)]
-    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-        images = np.concatenate(list(ex.map(_render_frames, tasks)))
-    return images, poses, intr, workers
+    return np.concatenate(render_in_pool(tasks, workers)), poses, intr, workers
 
 
 def _ate(pose, valid, gt):
@@ -2192,6 +2276,163 @@ def check_train_kernel(art, record, card):
                        "step0_loss_rel_cpu": step0_rel, **shapes}
 
 
+# ---- the tenth slice: the deep path to its end -----------------------------
+
+# scripts/bench_deep.py's worlds: blob fields from seeds 0-4 on the bench's
+# orbit (world 0 is render_workload()'s), and its gate (bench_deep.py:172-174):
+# every world at least 95 of 100 frames registered, the median ATE under 0.1
+DEEP_WORLDS = 5
+DEEP_SFM_MIN_REGISTERED, DEEP_SFM_MAX_MEDIAN_ATE = N_FRAMES - 5, 0.1
+
+
+def render_deep_worlds():
+    """Worlds 1..DEEP_WORLDS-1 of the deep bench, rendered by a pool of
+    processes over the host's cores (untimed set-up). Returns (a list of
+    [100, H, W] image arrays, the number of processes)."""
+    from eacham_tpu_torch.utils.synthetic import make_blob_scene, orbit_poses
+
+    f = 1.2 * max(WIDTH, HEIGHT)
+    intr = np.array([f, f, WIDTH / 2, HEIGHT / 2], np.float32)
+    poses = orbit_poses(N_FRAMES, radius=0.6, step_deg=0.5, advance=0.03)
+    worlds = [make_blob_scene(np.random.default_rng(w), n_blobs=900, depth=(3.5, 9.0),
+                              spread=2.6) for w in range(1, DEEP_WORLDS)]
+    workers = render_workers()
+    chunks = [c for c in np.array_split(np.arange(N_FRAMES), workers) if len(c)]
+    parts = render_in_pool([(blobs, poses[c], intr) for blobs in worlds for c in chunks], workers)
+    n = len(chunks)
+    return [np.concatenate(parts[w * n:(w + 1) * n]) for w in range(len(worlds))], workers
+
+
+def run_deep_world(models, images, intr, poses, dev, card, world, first=None, dump=None):
+    """One world of the deep bench through the port's entry points:
+    ``deep_front`` (SuperPoint, LightGlue over the windowed and retrieval
+    pairs, epipolar verification) -> ``run_sfm(match_tables=...)`` with
+    DEEP_OPTIONS; launch counts set to 0 just before and read just after.
+    ``first``: an earlier run's ``(front, scene, stats)`` on the same images,
+    which this one must repeat bit for bit. ``dump``: a path to save the
+    world's tables and result to (``dump_deep_world``) before any check.
+    Returns (record, front, scene, stats); ``front`` is (xy, desc, mask,
+    tables)."""
+    import torch
+    from eacham_tpu_torch.features.deep.frontend import PAIR_CHUNK
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions, run_sfm
+    from eacham_tpu_torch.utils.evaluate import relative_pose_error_deg, trajectory_ate
+
+    imgs = torch.as_tensor(images, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    xy, desc, mask, tables, t_extract, t_match = deep_front(models, imgs, intr, dev)
+    scene, stats = run_sfm(xy, desc, mask, image_size=(WIDTH, HEIGHT), intr=intr,
+                           options=SfmOptions(**DEEP_OPTIONS), device=dev, match_tables=tables)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    launches = launch_counts()
+    require(stats["initialized"], f"world {world}: run_sfm found no init pair: {stats}")
+    valid = scene.pose_valid.cpu().numpy()
+    ate = trajectory_ate(scene.pose.cpu().numpy()[valid], poses[valid])  # bench_deep.py:117-124
+    i0, j0 = stats["init_pair"]
+    rot, trans = relative_pose_error_deg(stats["T_init"].cpu().numpy(), poses[i0], poses[j0])
+    P = int(tables[0].shape[0])
+    want = -(-P // PAIR_CHUNK) * 4 * models[1].n_layers
+    front = (xy, desc, mask, tables)
+    rec = {"world": world, "run": int(first is not None),
+           "seconds": dict(extract=t_extract, match=t_match,
+                           init_pair=stats["seconds"]["init_pair"],
+                           seed=stats["seconds"].get("seed", 0.0),
+                           sweep=stats["seconds"]["sweep"],
+                           finalize=stats["seconds"]["finalize"], total=total),
+           "registered": stats["registered"], "excluded": stats["excluded"],
+           "landmarks": stats["landmarks"], "ate": ate,
+           "init_pair": [i0, j0], "init_rot_deg": rot, "init_trans_deg": trans,
+           "used_homography": stats["used_homography"], "n_good": stats["n_good"],
+           "pairs": P, "edges": stats["edges"], "global_ba": stats["global_ba"],
+           "map_refine_rounds": len(stats.get("map_refine") or []),
+           "attention_launches": launches["masked_attention"], "attention_expected": want,
+           "match_pairs_launches": launches["match_pairs"], "digest": scene_digest(scene)}
+    if dump is not None:
+        dump_deep_world(dump, front, poses, intr, rec)
+    if first is not None:
+        f_front, f_scene, f_stats = first
+        front_equal = all(torch.equal(a, b) for a, b in zip(
+            (*f_front[:3], *f_front[3]), (*front[:3], *front[3])))
+        differ = same_reconstruction((f_scene, f_stats), (scene, stats))
+        rec.update(front_equal=front_equal, repeat_equal=front_equal and not differ)
+        require(front_equal, f"world {world}'s repeat: the features or match tables differ")
+        require(not differ, f"world {world}'s repeat differs from its first run in {differ}")
+    print(f"deep_sfm world {world}{' (repeat)' if first is not None else ''} on {card}: "
+          f"registered {rec['registered']}/{N_FRAMES}, landmarks {rec['landmarks']}, ATE "
+          f"{ate:.4f}, init pair ({i0}, {j0}) rot {rot:.4f} / t-dir {trans:.4f} deg, "
+          f"attention launches {rec['attention_launches']} (expected {want}), "
+          + ", ".join(f"{k} {v:.3f}" for k, v in rec["seconds"].items()), flush=True)
+    require(rec["attention_launches"] == want and rec["match_pairs_launches"] == 0,
+            f"world {world}: launches {launches}, want {want} of masked_attention and no "
+            "match_pairs")
+    require(scene.pose.isfinite().all() and scene.points[scene.lm_valid].isfinite().all(),
+            f"world {world}: non-finite poses or landmarks")
+    ba = stats["global_ba"]
+    require(ba is not None and ba["final_cost"] < ba["initial_cost"],
+            f"world {world}: the global BA did not run or did not reduce its cost: {ba}")
+    # no pair_window: the AUTO rule runs no map-refinement round, as the
+    # reference's (eacham_tpu/sfm/pipeline.py:993-994)
+    require(rec["map_refine_rounds"] == 0, f"world {world}: {rec['map_refine_rounds']} "
+            "map-refinement rounds, not 0")
+    return rec, front, scene, stats
+
+
+def dump_deep_world(path, front, poses, intr, rec):
+    """Save one deep world's 6-tuple, keypoints and ground truth for
+    scripts/deep_sfm_replay_{jax,torch}.py (and the init-pair scripts)."""
+    xy, _, mask, tables = front
+    names = ("pair_idx", "pair_ok", "match_ij", "valid_ij", "match_ji", "valid_ji")
+    np.savez_compressed(path, intr=intr, poses=poses, keypoints=xy.cpu().numpy(),
+                        kp_mask=mask.cpu().numpy(), world=rec["world"],
+                        port_registered=rec["registered"], port_ate=rec["ate"],
+                        port_init_pair=np.asarray(rec["init_pair"]),
+                        **{k: t.cpu().numpy() for k, t in zip(names, tables)})
+    print(f"wrote deep world {rec['world']}'s match tables to {path}", flush=True)
+
+
+def run_deep_sfm(models, images, intr, poses, dev, card, dumps=None):
+    """The deep bench's five worlds to the end, world 0 twice (``deep_sfm``):
+    one JSON line, the bench's gate, equal bits on the repeat, kernel 3
+    against its plain version on world 0's first chunk. ``dumps``: {world:
+    path} to save with ``dump_deep_world``."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    others, workers = render_deep_worlds()
+    t_render = time.perf_counter() - t0
+    print(f"rendered worlds 1-{DEEP_WORLDS - 1} ({N_FRAMES} frames {WIDTH}x{HEIGHT} each) in "
+          f"{t_render:.2f} s with {workers} processes (untimed set-up)", flush=True)
+    recs, first = [], None
+    for world, imgs in enumerate([images, *others]):
+        rec, front, scene, stats = run_deep_world(models, imgs, intr, poses, dev, card, world,
+                                                  dump=(dumps or {}).get(world))
+        recs.append(rec)
+        if world == 0:
+            first = (front, scene, stats)
+        del front, scene, stats
+    del others
+    rec, _, _, _ = run_deep_world(models, images, intr, poses, dev, card, 0, first=first)
+    errs, _ = attention_vs_plain(models[1], *first[0], "deep_sfm world 0")
+    del first
+    ates = [r["ate"] for r in recs]
+    median_ate = float(np.median(ates))
+    out = {"phase": "deep_sfm", "card": card, "frames": N_FRAMES, "max_keypoints": DEEP_KPS,
+           "window": DEEP_WINDOW, "retrieval_k": DEEP_RETRIEVAL, "threshold": DEEP_THRESHOLD,
+           "worlds": recs, "repeat": rec, "repeat_equal": rec["repeat_equal"],
+           "median_ate": median_ate, "min_registered": min(r["registered"] for r in recs),
+           "attention_max_abs_err": max(errs.values()), "render_seconds": t_render,
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(out), flush=True)
+    for r in recs:
+        require(r["registered"] >= DEEP_SFM_MIN_REGISTERED,
+                f"deep bench gate: world {r['world']} registered {r['registered']} of {N_FRAMES}")
+    require(median_ate < DEEP_SFM_MAX_MEDIAN_ATE, f"deep bench gate: median ATE {median_ate}")
+    return out
+
+
 def dump_scene(path, scene, poses, intr):
     """Save the seeded scene's match tables for scripts/init_pair_spread_*.py."""
     t = {k: getattr(scene, k).cpu().numpy() for k in (
@@ -2209,7 +2450,11 @@ def main() -> int:
     ap.add_argument("--dump", metavar="NPZ",
                     help="also save the classical slice's match tables and ground truth here")
     ap.add_argument("--dump-deep", metavar="NPZ",
-                    help="also save the deep path's match tables and ground truth here")
+                    help="also save the deep path's world 0 (its 6-tuple, keypoints, ground "
+                         "truth and the port's result) here")
+    ap.add_argument("--dump-deep-world", metavar="W", type=int, action="append", default=[],
+                    help="with --dump-deep: also save world W (1-4) of the deep_sfm phase to "
+                         "NPZ's name + _wW.npz (repeatable)")
     ap.add_argument("--dump-loop", metavar="NPZ",
                     help="also save the loop phase's poses and loop measurements here")
     args = ap.parse_args()
@@ -2282,14 +2527,24 @@ def main() -> int:
     del left_desc, left_mask, right_desc, right_mask
 
     models, deep, deep_launches = run_deep(images, intr, dev, card)
-    if args.dump_deep:
-        dump_scene(args.dump_deep, deep[4], poses, intr)
     records.append(check_attention_kernel(models, deep, deep_launches, card))
     pair_launches = run_pair_path(deep[1], deep[2])
     records.append(check_match_pair_kernel(deep[1], deep[2], pair_launches, card))
     check_deep(models, deep, deep_launches, poses)
+    check_e2e(models, images, dev, card)
     deep_layers = models[1].n_layers
-    del models, deep
+    del deep
+    # the tenth slice: the deep bench's five worlds to the end
+    dumps = {}
+    if args.dump_deep:
+        dump = Path(args.dump_deep)
+        dumps = {0: dump, **{w: dump.with_name(f"{dump.stem}_w{w}.npz")
+                             for w in args.dump_deep_world if w != 0}}
+    deep_sfm = run_deep_sfm(models, images, intr, poses, dev, card, dumps=dumps)
+    # kernel 3 on the whole deep path: launches in each world's run
+    records[1]["deep_sfm"] = {"launches": [w["attention_launches"] for w in deep_sfm["worlds"]],
+                              "max_abs_err": deep_sfm["attention_max_abs_err"]}
+    del models, deep_sfm
     run_cli(images[:DEEP_CLI_FRAMES], poses, dev, card, deep_layers=deep_layers)
 
     t0 = time.perf_counter()

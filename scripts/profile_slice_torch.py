@@ -9,9 +9,10 @@ chosen path once to warm up (``extract_features`` -> ``initialize_sfm``,
 or with ``--frontend deep`` ``extract_deep_batch`` ->
 ``build_match_tables_deep`` -> ``initialize_sfm(match_tables=...)`` on the
 shipped weights, at ``chip_smoke.py``'s sizes and options; with ``--full``
-the whole classical path, ``extract_features`` -> ``run_sfm`` at the bench's
-options, with the sweep's and the finalization's seconds beside the front
-half's), then ``--runs``
+the whole path, ``extract_features`` -> ``run_sfm`` at the bench's options
+or, with ``--frontend deep``, the deep front half -> ``run_sfm`` at
+``scripts/bench_deep.py``'s, with the sweep's and the finalization's seconds
+beside the front half's), then ``--runs``
 more times with stage timings, the last of them under ``torch.profiler``.
 Prints the card, the steady-state stage seconds of every timed run, the
 device-busy share of the profiled run (device time summed over all
@@ -71,7 +72,22 @@ def full_once(images, intr, dev):
                 total=time.perf_counter() - t0), stats
 
 
-def sweep_components(images, intr, dev):
+def deep_full_once(images, intr, dev, models):
+    import torch
+
+    from chip_smoke import DEEP_OPTIONS, HEIGHT, WIDTH, deep_front
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions, run_sfm
+
+    t0 = time.perf_counter()
+    xy, desc, mask, tables, t_extract, t_match = deep_front(models, images, intr, dev)
+    _, stats = run_sfm(xy, desc, mask, image_size=(WIDTH, HEIGHT), intr=intr,
+                       options=SfmOptions(**DEEP_OPTIONS), device=dev, match_tables=tables)
+    torch.cuda.synchronize()
+    return dict(extract_deep=t_extract, match_deep=t_match, **stats["seconds"],
+                total=time.perf_counter() - t0), stats
+
+
+def sweep_components(images, intr, dev, once=full_once):
     """One more full run with the sweep's and the finalization's building
     blocks wrapped in synchronized timers: {name: (calls, seconds)}. The
     synchronizations stop the host from running ahead, so the sum is an
@@ -103,7 +119,7 @@ def sweep_components(images, intr, dev):
         for mod, name, fn in saved:
             where = "sweep" if mod is device_loop else "finalize"
             setattr(mod, name, timed(f"{where}.{name}", fn))
-        secs, _ = full_once(images, intr, dev)
+        secs, _ = once(images, intr, dev)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -121,7 +137,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frontend", choices=("classical", "deep"), default="classical")
     ap.add_argument("--full", action="store_true",
-                    help="the whole classical path (extract_features -> run_sfm)")
+                    help="the whole path (features -> run_sfm)")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--trace", help="also write a Chrome trace of the profiled run")
@@ -141,13 +157,12 @@ def main():
     images = torch.as_tensor(images, device=dev)
     once = full_once if args.full else slice_once
     if args.frontend == "deep":
-        if args.full:
-            ap.error("--full profiles the classical path")
         from functools import partial
 
         from eacham_tpu_torch.features.deep.frontend import load_frontend_params
 
-        once = partial(deep_once, models=load_frontend_params(device=dev)[:2])
+        once = partial(deep_full_once if args.full else deep_once,
+                       models=load_frontend_params(device=dev)[:2])
     secs, _ = once(images, intr, dev)
     print("warm-up (s): " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items()), flush=True)
     for r in range(args.runs):
@@ -163,7 +178,7 @@ def main():
                  f"global BA {stats['global_ba']}" if args.full else ""), flush=True)
 
     if args.full:
-        totals, secs_c = sweep_components(images, intr, dev)
+        totals, secs_c = sweep_components(images, intr, dev, once)
         print(f"building blocks under synchronized timers on {card} (that run: sweep "
               f"{secs_c['sweep']:.4f} s, finalize {secs_c['finalize']:.4f} s); calls, seconds, "
               "ms a call:", flush=True)

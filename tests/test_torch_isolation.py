@@ -1,6 +1,7 @@
 """The port stands alone: no module of eacham_tpu_torch, and neither
-chip_smoke.py nor bench_gpu.py, imports JAX or the JAX package, and its entry points never
-carry on silently on the CPU when a card was asked for."""
+chip_smoke.py, bench_gpu.py, the port's scripts nor its examples, imports JAX or the JAX
+package, and its entry points never carry on silently on the CPU when a card was asked
+for."""
 
 import ast
 import json
@@ -91,9 +92,9 @@ def test_every_module_imports_with_jax_and_the_jax_package_blocked():
 
 def _sources():
     """The port's Python sources (not its build directory), chip_smoke.py,
-    bench_gpu.py and the port's scripts."""
+    bench_gpu.py, the port's scripts and its examples."""
     files = [p for p in PKG.rglob("*.py") if "_build" not in p.parts]
-    scripts = [p for p in (ROOT / "scripts").glob("*_torch.py")]
+    scripts = [*(ROOT / "scripts").glob("*_torch.py"), *(ROOT / "examples").glob("*_torch.py")]
     return sorted(str(p.relative_to(ROOT))
                   for p in [*files, ROOT / "chip_smoke.py", ROOT / "bench_gpu.py", *scripts])
 
@@ -188,6 +189,23 @@ def test_bench_gpu_fails_without_a_card():
     out = subprocess.run([sys.executable, str(ROOT / "bench_gpu.py")], capture_output=True,
                          text=True, timeout=120, cwd=str(ROOT))
     assert out.returncode != 0 and "sfm_frames_per_s" not in out.stdout
+    assert "no CUDA device" in out.stderr
+
+
+@pytest.mark.parametrize("argv, result", [
+    (["scripts/bench_deep_torch.py"], "deep_sfm_frames_per_s"),
+    (["scripts/deep_sfm_replay_torch.py", "tables.npz"], '"package"'),
+    (["examples/extract_end2end_torch.py", "a.png", "b.png"], "e2e:"),
+], ids=["bench_deep_torch", "deep_sfm_replay_torch", "extract_end2end_torch"])
+def test_deep_scripts_fail_without_a_card(argv, result):
+    """The deep benchmark, the port's replay script and the end-to-end
+    example print no result and exit non-zero where there is no card
+    (unless the caller asks for the CPU)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(ROOT / argv[0]), *argv[1:]], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode != 0 and result not in out.stdout
     assert "no CUDA device" in out.stderr
 
 
