@@ -612,11 +612,14 @@ def check_match_kernel(desc, mask, launches, card):
             "library_ms": None, "cold_ms": cold}
 
 
-def deep_front(models, imgs, intr, dev):
+def deep_front(models, imgs, intr, dev, kps=DEEP_KPS, window=DEEP_WINDOW,
+               threshold=DEEP_THRESHOLD):
     """The deep path's front half, through the port's entry points, timed
     per stage: images -> SuperPoint features -> LightGlue match tables over
-    windowed candidate pairs, epipolar-verified (scripts/bench_deep.py's
-    recipe). Returns (xy, desc, mask, tables, t_extract, t_match)."""
+    windowed and retrieval candidate pairs, epipolar-verified
+    (scripts/bench_deep.py's recipe; ``kps``, ``window`` and ``threshold``
+    are its arguments). Returns (xy, desc, mask, tables, t_extract,
+    t_match)."""
     import torch
     from eacham_tpu_torch.features.deep.frontend import (
         build_match_tables_deep, extract_deep_batch)
@@ -626,12 +629,12 @@ def deep_front(models, imgs, intr, dev):
     opt = SfmOptions(**DEEP_OPTIONS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    xy, desc, _, mask = extract_deep_batch(superpoint, imgs, max_keypoints=DEEP_KPS, device=dev)
+    xy, desc, _, mask = extract_deep_batch(superpoint, imgs, max_keypoints=kps, device=dev)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     tables = build_match_tables_deep(
         matcher, xy, desc, mask, (WIDTH, HEIGHT), min_matches=opt.min_matches,
-        pair_window=DEEP_WINDOW, retrieval_k=DEEP_RETRIEVAL, threshold=DEEP_THRESHOLD,
+        pair_window=window, retrieval_k=DEEP_RETRIEVAL, threshold=threshold,
         verify=(intr, torch.Generator(device=dev).manual_seed(DEEP_VERIFY_SEED),
                 opt.max_repr_error, opt.verify_hyps), device=dev)
     torch.cuda.synchronize()
@@ -2285,22 +2288,37 @@ DEEP_WORLDS = 5
 DEEP_SFM_MIN_REGISTERED, DEEP_SFM_MAX_MEDIAN_ATE = N_FRAMES - 5, 0.1
 
 
-def render_deep_worlds():
-    """Worlds 1..DEEP_WORLDS-1 of the deep bench, rendered by a pool of
-    processes over the host's cores (untimed set-up). Returns (a list of
-    [100, H, W] image arrays, the number of processes)."""
+def deep_world(seed: int, n_frames: int = N_FRAMES):
+    """The deep bench's world ``seed``: its blob field, its orbit of
+    ``n_frames`` poses and the camera (scripts/bench_deep.py's recipe).
+    Returns (blobs, poses, intr)."""
     from eacham_tpu_torch.utils.synthetic import make_blob_scene, orbit_poses
 
     f = 1.2 * max(WIDTH, HEIGHT)
     intr = np.array([f, f, WIDTH / 2, HEIGHT / 2], np.float32)
-    poses = orbit_poses(N_FRAMES, radius=0.6, step_deg=0.5, advance=0.03)
-    worlds = [make_blob_scene(np.random.default_rng(w), n_blobs=900, depth=(3.5, 9.0),
-                              spread=2.6) for w in range(1, DEEP_WORLDS)]
+    poses = orbit_poses(n_frames, radius=0.6, step_deg=0.5, advance=0.03)
+    blobs = make_blob_scene(np.random.default_rng(seed), n_blobs=900, depth=(3.5, 9.0),
+                            spread=2.6)
+    return blobs, poses, intr
+
+
+def render_views(worlds):
+    """Each ``(blobs, poses, intr)`` of ``worlds`` rendered by a pool of
+    processes over the host's cores (untimed set-up). Returns (a list of
+    [n, H, W] image arrays, the number of processes)."""
     workers = render_workers()
-    chunks = [c for c in np.array_split(np.arange(N_FRAMES), workers) if len(c)]
-    parts = render_in_pool([(blobs, poses[c], intr) for blobs in worlds for c in chunks], workers)
-    n = len(chunks)
-    return [np.concatenate(parts[w * n:(w + 1) * n]) for w in range(len(worlds))], workers
+    tasks, spans = [], []
+    for blobs, poses, intr in worlds:
+        chunks = [c for c in np.array_split(np.arange(len(poses)), workers) if len(c)]
+        spans.append((len(tasks), len(tasks) + len(chunks)))
+        tasks += [(blobs, poses[c], intr) for c in chunks]
+    parts = render_in_pool(tasks, workers)
+    return [np.concatenate(parts[a:b]) for a, b in spans], workers
+
+
+def render_deep_worlds():
+    """Worlds 1..DEEP_WORLDS-1 of the deep bench (``render_views``)."""
+    return render_views([deep_world(w) for w in range(1, DEEP_WORLDS)])
 
 
 def run_deep_world(models, images, intr, poses, dev, card, world, first=None, dump=None):
@@ -2453,11 +2471,15 @@ def main() -> int:
                     help="also save the deep path's world 0 (its 6-tuple, keypoints, ground "
                          "truth and the port's result) here")
     ap.add_argument("--dump-deep-world", metavar="W", type=int, action="append", default=[],
-                    help="with --dump-deep: also save world W (1-4) of the deep_sfm phase to "
-                         "NPZ's name + _wW.npz (repeatable)")
+                    help="with --dump-deep only: also save world W (1-4) of the deep_sfm "
+                         "phase to NPZ's name + _wW.npz (repeatable)")
     ap.add_argument("--dump-loop", metavar="NPZ",
                     help="also save the loop phase's poses and loop measurements here")
     args = ap.parse_args()
+    if args.dump_deep_world and not args.dump_deep:
+        ap.error("--dump-deep-world needs --dump-deep")
+    if any(not 0 <= w < DEEP_WORLDS for w in args.dump_deep_world):
+        ap.error(f"--dump-deep-world: the worlds are 0-{DEEP_WORLDS - 1}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1

@@ -13,7 +13,10 @@ local BA every 3rd registration). The images are uploaded outside the
 timed region; a warm-up pass on world 0 comes first (kernel build,
 allocator and cuDNN caches), then one timed pass ending in
 ``torch.cuda.synchronize()``. Worlds 1..scenes-1 (blob fields from those
-seeds) and the textured-surface worlds follow, untimed.
+seeds) and the textured-surface worlds follow, untimed. The recipe (the
+worlds, the options, the front half) is ``chip_smoke.py``'s, whose
+``deep_sfm`` phase runs the same five blob worlds; the worlds are rendered
+by its process pool before the first pass.
 
 Gate, as the reference's: every blob world at least frames - 5 registered
 and the median ATE over the blob worlds under 0.1. The surface rows are
@@ -27,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -37,24 +39,19 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-W, H = 512, 384
-DEEP_OPTIONS = dict(
-    min_initial_inliers=60, min_matches=20, match_ratio=0.85,
-    init_min_tri_angle_deg=1.0, min_tri_angle_deg=1.0,
-    ransac_hyps_e=256, ransac_hyps_h=128, ransac_hyps_pnp=256,
-    lm_capacity=16384, refine_max_iters=30, global_max_iters=50,
-    local_ba_every=3)
-VERIFY_SEED, RETRIEVAL_K = 7, 3
-
 
 def main() -> int:
     import torch
 
+    from chip_smoke import (
+        DEEP_KPS, DEEP_OPTIONS, DEEP_THRESHOLD, DEEP_WINDOW, HEIGHT, N_FRAMES, WIDTH,
+        card_line, deep_front, deep_world, render_views)
+
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--frames", type=int, default=100)
-    ap.add_argument("--window", type=int, default=10)
-    ap.add_argument("--kps", type=int, default=1024)
-    ap.add_argument("--threshold", type=float, default=0.15)
+    ap.add_argument("--frames", type=int, default=N_FRAMES)
+    ap.add_argument("--window", type=int, default=DEEP_WINDOW)
+    ap.add_argument("--kps", type=int, default=DEEP_KPS)
+    ap.add_argument("--threshold", type=float, default=DEEP_THRESHOLD)
     ap.add_argument("--scenes", type=int, default=5, help="blob worlds for the median-ATE gate")
     ap.add_argument("--surface-scenes", type=int, default=3,
                     help="textured-surface worlds for the second-domain rows (0 = blob only)")
@@ -66,52 +63,37 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("bench_deep_torch: no CUDA device", file=sys.stderr)
         return 1
-    from eacham_tpu_torch.features.deep.frontend import (
-        build_match_tables_deep, extract_deep_batch, load_frontend_params)
+    from eacham_tpu_torch.features.deep.frontend import load_frontend_params
     from eacham_tpu_torch.sfm.pipeline import SfmOptions, run_sfm
     from eacham_tpu_torch.utils.evaluate import trajectory_ate
-    from eacham_tpu_torch.utils.synthetic import (
-        make_blob_scene, make_surface_scene, orbit_poses, render_view)
+    from eacham_tpu_torch.utils.synthetic import make_surface_scene, orbit_poses
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()[0]
+    card = card_line()
     print(f"# {card}", flush=True)
     dev = torch.device("cuda", 0)
     N = args.frames
-    f = 1.2 * max(W, H)
-    intr = np.array([f, f, W / 2, H / 2], np.float32)
-    poses = orbit_poses(N, radius=0.6, step_deg=0.5, advance=0.03)
-
-    def blob_world(seed):
-        scene = make_blob_scene(np.random.default_rng(seed), n_blobs=900, depth=(3.5, 9.0),
-                                spread=2.6)
-        return np.stack([render_view(scene, T, intr, W, H) for T in poses])
-
+    worlds = [deep_world(s, N) for s in range(args.scenes)]
+    _, poses, intr = worlds[0]
+    # the textured-surface worlds at the robustness matrix's orbit geometry
+    poses_s = orbit_poses(N, radius=0.6, step_deg=0.8, advance=0.04)
+    worlds += [(make_surface_scene(np.random.default_rng(w), n_blobs=4000), poses_s, intr)
+               for w in range(args.surface_scenes)]
     t0 = time.perf_counter()
-    images = blob_world(0)
-    print(f"# rendered {N} frames in {time.perf_counter() - t0:.1f}s", flush=True)
-    superpoint, matcher, n_layers = load_frontend_params(weights_dir=args.weights, device=dev)
-    print(f"# matcher: {n_layers}-layer (threshold {args.threshold})", flush=True)
+    rendered, workers = render_views(worlds)
+    print(f"# rendered {len(worlds)} worlds of {N} frames in {time.perf_counter() - t0:.1f}s "
+          f"with {workers} processes", flush=True)
+    blob_images, surface_images = rendered[:args.scenes], rendered[args.scenes:]
+    models = load_frontend_params(weights_dir=args.weights, device=dev)[:2]
+    print(f"# matcher: {models[1].n_layers}-layer (threshold {args.threshold})", flush=True)
     opts = SfmOptions(**DEEP_OPTIONS)
 
     def full(imgs_dev):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        xy, desc, _, mask = extract_deep_batch(superpoint, imgs_dev, max_keypoints=args.kps,
-                                               device=dev)
-        torch.cuda.synchronize()
-        t_ex = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        tables = build_match_tables_deep(
-            matcher, xy, desc, mask, (W, H), min_matches=opts.min_matches,
-            pair_window=args.window, retrieval_k=RETRIEVAL_K, threshold=args.threshold,
-            verify=(intr, torch.Generator(device=dev).manual_seed(VERIFY_SEED),
-                    opts.max_repr_error, opts.verify_hyps), device=dev)
-        torch.cuda.synchronize()
-        t_match = time.perf_counter() - t0
-        scene, stats = run_sfm(xy, desc, mask, image_size=(W, H), intr=intr, options=opts,
-                               verbose=False, match_tables=tables, device=dev)
+        xy, desc, mask, tables, t_ex, t_match = deep_front(
+            models, imgs_dev, intr, dev, kps=args.kps, window=args.window,
+            threshold=args.threshold)
+        scene, stats = run_sfm(xy, desc, mask, image_size=(WIDTH, HEIGHT), intr=intr,
+                               options=opts, verbose=False, match_tables=tables, device=dev)
         torch.cuda.synchronize()
         return scene, stats, t_ex, t_match
 
@@ -120,7 +102,7 @@ def main() -> int:
         return trajectory_ate(scene.pose.cpu().numpy()[valid], gt[valid])
 
     # the upload happens outside the timed region, as in the reference
-    imgs_dev = torch.as_tensor(images, device=dev)
+    imgs_dev = torch.as_tensor(blob_images[0], device=dev)
     t0 = time.perf_counter()
     full(imgs_dev)
     print(f"# warmup: {time.perf_counter() - t0:.1f}s", flush=True)
@@ -138,18 +120,14 @@ def main() -> int:
     # frames/s is world 0's
     ates, regs = [rmse], [int(stats["registered"])]
     for s in range(1, args.scenes):
-        sc, st, _, _ = full(torch.as_tensor(blob_world(s), device=dev))
+        sc, st, _, _ = full(torch.as_tensor(blob_images[s], device=dev))
         ates.append(ate_of(sc, poses))
         regs.append(int(st["registered"]))
         print(f"# scene {s}: registered {st['registered']}/{N}, ATE {ates[-1]:.4f}", flush=True)
     med_ate = float(np.median(ates))
 
-    # the textured-surface worlds at the robustness matrix's orbit geometry
     surf_ates, surf_regs = [], []
-    poses_s = orbit_poses(N, radius=0.6, step_deg=0.8, advance=0.04)
-    for w in range(args.surface_scenes):
-        scene_w = make_surface_scene(np.random.default_rng(w), n_blobs=4000)
-        imgs_w = np.stack([render_view(scene_w, T, intr, W, H) for T in poses_s])
+    for w, imgs_w in enumerate(surface_images):
         sc, st, _, _ = full(torch.as_tensor(imgs_w, device=dev))
         surf_ates.append(ate_of(sc, poses_s))
         surf_regs.append(int(st["registered"]))
