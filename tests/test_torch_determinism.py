@@ -11,8 +11,9 @@ and order-dependent ``scatter_reduce`` / ``index_reduce`` on a floating
 tensor raise: on the card each is a float atomic whose result depends on
 the order of arrival) run ``refine_ba`` in every solver and method,
 ``refine_ba_sharded`` on two gloo ranks and on a group of one (equal bits
-to ``refine_ba``), ``run_sfm``, two windows of ``StreamingReconstructor``
-and ``run_sfm_rgbd``, each at the size of its own test file.
+to ``refine_ba``), ``run_sfm``, the anchored ``resume_sfm``, two windows of
+``StreamingReconstructor`` and ``run_sfm_rgbd``, each at the size of its own
+test file.
 """
 
 import time
@@ -267,6 +268,29 @@ def test_run_sfm_has_no_float_scatter_add(sequence):  # noqa: F811
         scene, stats = run_sfm(uv, dsc, vis, SWEEP_SIZE, intr=intr,
                                options=SfmOptions(**SWEEP_OPTS), device="cpu")
     assert stats["registered"] == uv.shape[0] and stats["global_ba"] is not None
+
+
+def test_anchored_resume_has_no_float_scatter_add(sequence):  # noqa: F811
+    """The anchored path of scripts/anchor_probe.py at the sweep test's
+    size: ``run_sfm`` on its 12 frames, five frames spread over the
+    registered ones anchored to the truth in the estimate's frame, then
+    ``resume_sfm(abs_anchors=...)`` (every global BA with the absolute
+    priors) under the guard, and again without it: equal bits."""
+    from eacham_tpu_torch.sfm import anchors_in_estimate_frame
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions, resume_sfm, run_sfm
+
+    uv, dsc, vis, intr, Ts = sequence
+    opt = SfmOptions(**SWEEP_OPTS, abs_sigma_pos=0.05, abs_sigma_rot=0.005)
+    scene, _ = run_sfm(uv, dsc, vis, SWEEP_SIZE, intr=intr, options=opt, device="cpu")
+    reg = np.flatnonzero(scene.pose_valid.numpy())
+    ids = reg[np.linspace(0, len(reg) - 1, 5).round().astype(int)]
+    anchors = anchors_in_estimate_frame(scene.pose, Ts, ids, valid=scene.pose_valid)
+    with FloatScatterGuard():
+        a, stats = resume_sfm(scene, options=opt, verbose=False, abs_anchors=anchors,
+                              device="cpu")
+    b, _ = resume_sfm(scene, options=opt, verbose=False, abs_anchors=anchors, device="cpu")
+    assert stats["registered"] == uv.shape[0] and stats["global_ba"] is not None
+    assert torch.equal(a.pose, b.pose) and torch.equal(a.points, b.points)
 
 
 def test_streaming_has_no_float_scatter_add(stream_scene):  # noqa: F811

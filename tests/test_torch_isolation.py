@@ -209,6 +209,22 @@ def test_deep_scripts_fail_without_a_card(argv, result):
     assert "no CUDA device" in out.stderr
 
 
+@pytest.mark.parametrize("argv, result", [
+    (["scripts/anchor_probe_torch.py", "--frames", "60"], "anchor_error"),
+    (["scripts/stress_100_torch.py"], "repeat_equal"),
+], ids=["anchor_probe_torch", "stress_100_torch"])
+def test_long_trajectory_and_stress_scripts_fail_without_a_card(argv, result):
+    """The ports of scripts/anchor_probe.py and scripts/stress_100.py print
+    no result and exit non-zero where there is no card (unless the caller
+    asks for the CPU with ``--device cpu``)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(ROOT / argv[0]), *argv[1:]], capture_output=True,
+                         text=True, timeout=120, cwd=str(ROOT))
+    assert out.returncode != 0 and result not in out.stdout
+    assert "no CUDA device" in out.stderr
+
+
 def test_rgbd_datasets_frontend_and_parallel_entry_points_refuse_a_missing_card(tmp_path):
     """The seventh slice's entry points raise as well: the metric pipeline
     and its depth sampling, the TUM path past its host-side reader (the
