@@ -154,6 +154,33 @@
      launch a run, the second run equal to the first bit for bit; kernel 1
      at N=100, Kp=1024, P=5120 against its plain version
      (``kernels[0].stress_100``);
+   - ``examples`` (the twelfth slice, after ``api``): the port's three
+     examples as subprocesses on the card, started together:
+     ``extract_match_torch.py`` on frames 0 and 1 with either frontend
+     (``--weights weights``: the shipped 3-layer matcher), the
+     ``reconstruct_synthetic_torch.py`` demo and ``stream_reconstruct_torch.py``
+     over 40 frames of a camera sliding past a smooth textured surface
+     (``slide_frames``) in windows of 8 at 1024 keypoints, with
+     ``SfmOptions``' defaults as in the JAX example; each must exit 0, the
+     overlays exist, the demo's ATE be under 0.1 and the stream's
+     transform.json hold at least 38 frames;
+   - ``robustness`` (the twelfth slice, after ``stress_100``):
+     scripts/robustness_matrix.py's classical column at full width on its
+     three surface worlds (60 frames at 512x384, K=512, a local BA every
+     3rd registration), the clean cell and the most severe blur,
+     noise+blur and drop-frames cells (ROBUST_CELLS), the clean and
+     noise+blur cells on RANSAC seeds 0-2 (ROBUST_SEEDS_OF), 24 runs and
+     the clean cell's world 0 again (equal digests); gate per cell: every
+     world at least 95% registered, the median ATE under 0.1 (under 1.5x
+     the reference's 0.2265 at 2 px of blur; over several seeds, the median
+     of the seeds' medians); kernel 1 at N=60, Kp=512, P=2048 against its
+     plain version (``kernels[0].robustness``, with every cell's P);
+   - ``recall`` (after ``robustness``): scripts/tune_deep_recall.py's
+     held-out set (48 SuperPoint-output pairs, seed 99) through the shipped
+     matcher at seven thresholds, 12 attention launches a forward, precision
+     and recall within RECALL_TOL of the JAX package's CPU figures at each;
+     one batch's scores with kernel 3 against the plain attention, and the
+     kernel timed at ``[8, 4, 64, 64]`` (``kernels[1].recall``);
 9. trains the deep frontend (``train``, the eighth slice), last, printing
    one JSON line with ``"phase": "train"``: ``train_lightglue`` at
    scripts/train_deep.py's recipe (3 layers, batch 8, 64 keypoints, lr
@@ -611,6 +638,10 @@ def check_match_kernel(desc, mask, launches, card):
               + sum(o.numel() * o.element_size() for o in raw_k))
     bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    # bucket_pairs pads with (0, 0) rows, which the kernel computes all the
+    # same: the bound of the real pairs' products alone, beside it
+    real = int((pairs[:, 0] < pairs[:, 1]).sum())
+    real_bound_ms = max(flops * real / P / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     require(ms >= bound_ms, f"match kernel {ms} ms is under its bound {bound_ms} ms")
     # partial yardstick, never called by the port: the same bf16 products
     # as one batched matmul, without the masking and top-2 reductions
@@ -1330,15 +1361,21 @@ def check_kernel_at(tag, desc, kp_mask, pairs, record, card, launches=None, plai
               + sum(o.numel() * o.element_size() for o in raw_k))
     bound_ms = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    # bucket_pairs pads with (0, 0) rows, which the kernel computes all the
+    # same: the bound of the real pairs' products alone, beside it
+    real = int((pairs[:, 0] < pairs[:, 1]).sum())
+    real_bound_ms = max(flops * real / P / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     alone = "" if dev_ms is None else f", {dev_ms:.4f} ms on the card alone (profiler)"
     print(f"match kernel at the {tag} shape on {card}: {ms:.4f} ms a call warm (mean of "
           f"20, the wrapper's host work included){alone}, cold_ms {cold:.4f}, plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops:.4g} FLOP, "
-          f"{nbytes:.4g} B)", flush=True)
+          f"{nbytes:.4g} B); {real} of the {P} pairs real, their bound {real_bound_ms:.4f} ms",
+          flush=True)
     require(ms >= bound_ms, f"match kernel {ms} ms is under its bound {bound_ms} ms")
     record[tag] = {"P": P, "Kp": Kp, "frames": frames, "table_rows": desc_bf.shape[0],
                    "max_abs_err": err, "ms": ms, "device_ms": dev_ms, "cold_ms": cold,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "real_pairs": real, "real_bound_ms": real_bound_ms}
     if launches is not None:
         record[tag]["launches"] = launches
 
@@ -2197,7 +2234,6 @@ def check_train_kernel(art, record, card):
     import copy
 
     import torch
-    import torch.nn.functional as F
     from eacham_tpu_torch.features.deep import lightglue as lg
     from eacham_tpu_torch.features.deep import train
     from eacham_tpu_torch.ops import attention as at
@@ -2263,41 +2299,8 @@ def check_train_kernel(art, record, card):
                     net.similarity(t[0], t[1], ones, t[2], t[3], ones)
         finally:
             lg.attention = inner
-        q, k, v, m = seen[0]                    # the first self block
-        o = repeated(lambda: at.masked_attention_kernel(q, k, v, m), f"attention, train {tag}")
-        err = float((o - at.masked_attention_plain(q, k, v, m)).abs().max())
-        require(err < 1e-5 * max(1.0, float(v.abs().max())),
-                f"attention kernel off by {err} at the train {tag} shape")
-        B, H, Nq, D = q.shape
-        ms = cuda_ms(lambda: at.masked_attention_kernel(q, k, v, m), reps=50)
-        # a launch here is shorter than the wrapper's host work: the card's
-        # own time comes from launches queued behind a long product
-        dev_ms = queued_ms(lambda: at.masked_attention_kernel(q, k, v, m), reps=50)
-        plain_ms = cuda_ms(lambda: at.masked_attention_plain(q, k, v, m), reps=20)
-        # yardstick only, never called by the port
-        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :])
-        library_ms = cuda_ms(library, reps=50)
-        library_dev_ms = queued_ms(library, reps=50)
-        flops = 4.0 * H * Nq * D * float(m.sum())
-        nbytes = 4.0 * (q.numel() + k.numel() + v.numel() + q.numel()) + m.numel()
-        t_fma, t_3x = flops / PEAK_FP32_FLOPS, 3.0 * flops / PEAK_TF32_FLOPS
-        t_ops, t_bytes = min(t_fma, t_3x), nbytes / PEAK_BYTES
-        bound_ms = max(t_ops, t_bytes) * 1e3
-        bound_by = ("operations (3xTF32)" if t_3x < t_fma else "operations") \
-            if t_ops >= t_bytes else "bytes"
-        print(f"attention kernel at the train {tag} shape [B={B}, H={H}, N={Nq}, D={D}], "
-              f"{int(m.sum())}/{m.numel()} keys live, on {card}: {ms:.4f} ms a call, "
-              f"{dev_ms:.4f} ms on the card alone (50 calls queued), plain "
-              f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms a call "
-              f"and {library_dev_ms:.4f} on the card alone, bound "
-              f"{bound_ms:.4f} ms ({bound_by}: 3 x {flops:.4g} FLOP, {nbytes:.4g} B), max abs "
-              f"err {err:.3g}, {REPEATS} equal runs", flush=True)
-        require(min(ms, dev_ms) >= bound_ms,
-                f"attention kernel {ms} / {dev_ms} ms is under its bound {bound_ms} ms")
-        shapes[tag] = {"shape": [B, H, Nq, D], "live_keys": int(m.sum()), "max_abs_err": err,
-                       "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by, "library_ms": library_ms,
-                       "library_device_ms": library_dev_ms}
+        # the first self block
+        shapes[tag] = time_attention(*seen[0], card, f"train {tag}")
     record["train"] = {"launches": art["launches"], "launches_per_step": 12,
                        "loss_rel": loss_rel, "grad_rel": worst, "kernel_runs_equal": runs_equal,
                        "step0_loss_rel_cpu": step0_rel, **shapes}
@@ -2704,6 +2707,523 @@ def run_stress_100(dev, card, records):
     return out
 
 
+# ---- the twelfth slice: the nuisance matrix, the matcher's held-out curve, the examples ----
+
+# scripts/robustness_matrix.py's recipe: three textured-surface worlds (seeds
+# 0-2, 4000 blobs), 60 frames of its orbit at 512x384, K=512 (the deep column
+# 1024 at threshold 0.15), the bench's options with a local BA every 3rd
+# registration (:149-155), each nuisance drawn from default_rng(7 + world)
+ROBUST_FRAMES, ROBUST_WORLDS = 60, 3
+ROBUST_OPTIONS = dict(BENCH_OPTIONS, local_ba_every=3)
+ROBUST_DEEP_KPS, ROBUST_DEEP_THRESHOLD = 1024, 0.15
+
+
+def vignette(h, w, strength):
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r2 = ((xx - w / 2) / (w / 2)) ** 2 + ((yy - h / 2) / (h / 2)) ** 2
+    return 1.0 - strength * r2
+
+
+NUISANCES = {
+    "clean":        [("", {})],
+    "noise":        [(f"sigma={s}", {"noise": s}) for s in (0.01, 0.03, 0.06)],
+    "blur":         [(f"sigma={s}px", {"blur": s}) for s in (0.5, 1.0, 2.0)],
+    "exposure":     [(f"{p}%+vignette", {"exposure": p / 100}) for p in (15, 30, 50)],
+    "noise+blur":   [("0.03/1.0px", {"noise": 0.03, "blur": 1.0})],
+    "drop-frames":  [(f"{p}%", {"drop": p / 100}) for p in (10, 20, 30)],
+}
+
+
+def apply_nuisance(images, rng, noise=0.0, blur=0.0, exposure=0.0, drop=0.0):
+    """scripts/robustness_matrix.py's nuisances, draw for draw: blur, then
+    exposure gain and gamma under a vignette, then sensor noise, then
+    dropped frames (never the first or the last). Returns (images, the
+    kept frames' indices or None)."""
+    from eacham_tpu_torch.utils.synthetic import gaussian_blur
+
+    out = images
+    if blur > 0:
+        out = np.stack([gaussian_blur(im, blur) for im in out])
+    if exposure > 0:
+        vig = vignette(out.shape[1], out.shape[2], 0.4 * exposure / 0.5)
+        gains = np.exp(rng.uniform(-exposure, exposure, len(out)))
+        gammas = np.exp(rng.uniform(-exposure, exposure, len(out)))
+        out = np.stack([
+            np.clip((np.clip(im * g * vig, 0, 1)) ** gm, 0, 1)
+            for im, g, gm in zip(out, gains, gammas)])
+    if noise > 0:
+        out = np.clip(out + rng.normal(scale=noise, size=out.shape), 0, 1)
+    keep = None
+    if drop > 0:
+        n = len(out)
+        kill = rng.choice(np.arange(1, n - 1), int(drop * n), replace=False)
+        keep = np.setdiff1d(np.arange(n), kill)
+        out = out[keep]
+    return out.astype(np.float32), keep
+
+
+# the phase's cells: clean and the most severe level of the blur, noise+blur
+# and drop-frames families (the script runs all 14). The most severe noise
+# (sigma=0.06) and exposure (50%+vignette) cells were cut after the first
+# whole run took 833 s against an 800 s mark, 22 s each (PERF.md, Findings)
+ROBUST_CELLS = (("clean", ""), ("blur", "sigma=2.0px"), ("noise+blur", "0.03/1.0px"),
+                ("drop-frames", "30%"))
+# the gate, per cell: every world at least 95% registered (the reference:
+# 100% on every world of every cell, robustness_matrix.json) and the median
+# ATE under 0.1, except at 2 px of blur, where the reference itself reads
+# 0.2265 (SCALING.md:640-643): 1.5x that
+ROBUST_MIN_REGISTERED, ROBUST_MAX_ATE = 0.95, 0.1
+ROBUST_MAX_ATE_OF = {("blur", "sigma=2.0px"): 1.5 * 0.2265}
+# one RANSAC seed's cell median rides on the draws. On the card over seeds
+# 0-15 (0-7 for clean; scripts/robustness_split_torch.py, PERF.md Findings)
+# noise+blur reads 0.044-0.098 and clean 0.007-0.106, spreads that reach the
+# limit: these two are gated on the median of seeds 0-2's cell medians, so
+# that a change which only reorders the draws fails only if two of three
+# seeds cross. Blur 2 px (0.077-0.157 against 0.34) and drop 30%
+# (0.013-0.072) stay well inside it on one seed
+ROBUST_SEEDS_OF = {("clean", ""): 3, ("noise+blur", "0.03/1.0px"): 3}
+
+
+def robust_worlds(n_frames: int = ROBUST_FRAMES, n_worlds: int = ROBUST_WORLDS,
+                  size=(WIDTH, HEIGHT)):
+    """The script's surface worlds at ``size`` (width, height), rendered by
+    a pool of processes over the host's cores (untimed set-up). Returns (a
+    list of [n, H, W] image arrays, poses, intr, the number of
+    processes)."""
+    from eacham_tpu_torch.utils.synthetic import make_surface_scene, orbit_poses
+
+    f = 1.2 * max(size)
+    intr = np.array([f, f, size[0] / 2, size[1] / 2], np.float32)
+    poses = orbit_poses(n_frames, radius=0.6, step_deg=0.8, advance=0.04)
+    workers = render_workers()
+    tasks, spans = [], []
+    for w in range(n_worlds):
+        blobs = make_surface_scene(np.random.default_rng(w), n_blobs=4000)
+        chunks = [c for c in np.array_split(np.arange(n_frames), workers) if len(c)]
+        spans.append((len(tasks), len(tasks) + len(chunks)))
+        tasks += [(blobs, poses[c], intr, size) for c in chunks]
+    parts = render_in_pool(tasks, workers)
+    return [np.concatenate(parts[a:b]) for a, b in spans], poses, intr, workers
+
+
+def robust_run(images, poses, intr, dev, frontend="classical", models=None,
+               threshold=ROBUST_DEEP_THRESHOLD, seed=0):
+    """One run of scripts/robustness_matrix.py's ``run_cell`` through the
+    port's entry points, launch counts set to 0 just before and read just
+    after: classical ``extract_features(K=512)``, or deep
+    ``extract_deep_batch(K=1024)`` -> ``build_match_tables_deep`` over all
+    pairs, epipolar-verified with seed 7 (``models``: the SuperPoint and
+    LightGlue modules); then ``run_sfm`` with ROBUST_OPTIONS and RANSAC
+    seed ``seed``. Returns
+    (scene, stats, record, (xy, desc, mask)); below three registered frames
+    the record's registered share is 0 and its ATE inf, as the script's."""
+    import torch
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+    from eacham_tpu_torch.sfm.pipeline import SfmOptions, run_sfm
+    from eacham_tpu_torch.utils.evaluate import trajectory_ate
+
+    n, h, w = images.shape
+    opt = SfmOptions(**ROBUST_OPTIONS, seed=seed)
+    imgs = torch.as_tensor(images, device=dev)
+    sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    tables = None
+    if frontend == "deep":
+        from eacham_tpu_torch.features.deep.frontend import (
+            build_match_tables_deep, extract_deep_batch)
+
+        superpoint, matcher = models
+        xy, desc, _, mask = extract_deep_batch(superpoint, imgs, max_keypoints=ROBUST_DEEP_KPS,
+                                               device=dev)
+        tables = build_match_tables_deep(
+            matcher, xy, desc, mask, (w, h), min_matches=opt.min_matches, threshold=threshold,
+            verify=(intr, torch.Generator(device=dev).manual_seed(DEEP_VERIFY_SEED),
+                    opt.max_repr_error, opt.verify_hyps), device=dev)
+    else:
+        from eacham_tpu_torch.features.frontend import extract_features
+
+        xy, desc, _, mask = extract_features(imgs, max_keypoints=MAX_KPS, device=dev)
+    sync(dev)
+    t_front = time.perf_counter() - t0
+    scene, stats = run_sfm(xy, desc, mask, image_size=(w, h), intr=intr, options=opt,
+                           device=dev, match_tables=tables)
+    sync(dev)
+    total = time.perf_counter() - t0
+    launches = launch_counts()
+    valid = scene.pose_valid.cpu().numpy()
+    enough = valid.sum() >= 3
+    ate = trajectory_ate(scene.pose.cpu().numpy()[valid], poses[valid]) if enough else float("inf")
+    rec = {"frames": n, "registered": float(valid.sum() / n) if enough else 0.0, "ate": ate,
+           "seconds": dict(front=t_front, **stats["seconds"], total=total),
+           "pairs": stats["pairs"], "edges": stats["edges"], "landmarks": stats["landmarks"],
+           "launches": launches, "digest": scene_digest(scene)}
+    return scene, stats, rec, (xy, desc, mask)
+
+
+def run_robustness(dev, card, records):
+    """scripts/robustness_matrix.py's classical column at full width on
+    ROBUST_CELLS (``robustness``): the three worlds rendered by the process
+    pool, each cell's nuisance applied to each world, ``robust_run`` on each
+    (one ``match_pairs`` launch a run), the clean cell's world 0 twice with
+    equal digests, a cell of ROBUST_SEEDS_OF on several RANSAC seeds. One
+    JSON line with every cell's registrations, ATEs and seconds; the gate per
+    cell; then kernel 1 against its plain version on
+    the clean cell's world 0 (``kernels[0].robustness``, with the P of every
+    cell)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    worlds, poses, intr, workers = robust_worlds()
+    t_render = time.perf_counter() - t0
+    print(f"robustness: rendered {len(worlds)} surface worlds x {len(poses)} frames "
+          f"{worlds[0].shape[2]}x{worlds[0].shape[1]} in {t_render:.2f} s with {workers} processes (untimed set-up)",
+          flush=True)
+    cells, failed, kernel_in, launches = [], [], None, 0
+    for family, level in ROBUST_CELLS:
+        t_cell = time.perf_counter()
+        runs, seed_ates, inputs = [], [], []
+        for w, images in enumerate(worlds):
+            imgs, keep = apply_nuisance(images, np.random.default_rng(7 + w),
+                                        **dict(NUISANCES[family])[level])
+            inputs.append((imgs, poses[keep] if keep is not None else poses))
+        for seed in range(ROBUST_SEEDS_OF.get((family, level), 1)):
+            seed_runs = []
+            for w, (imgs, gt) in enumerate(inputs):
+                scene, _, rec, (_, desc, mask) = robust_run(imgs, gt, intr, dev, seed=seed)
+                launches += rec["launches"]["match_pairs"]
+                require(rec["launches"]["match_pairs"] == 1,
+                        f"robustness {family} {level} world {w}: launches {rec['launches']}")
+                require(bool(scene.pose.isfinite().all()),
+                        f"robustness {family} {level} world {w}: non-finite poses")
+                if family == "clean" and w == 0 and seed == 0:
+                    again = robust_run(imgs, gt, intr, dev)[2]
+                    launches += again["launches"]["match_pairs"]
+                    rec["repeat_digest"] = again["digest"]
+                    kernel_in = (desc, mask, scene.pair_idx)
+                seed_runs.append(dict(rec, seed=seed))
+                del scene, desc, mask
+            seed_ates.append(float(np.median([r["ate"] for r in seed_runs])))
+            runs += seed_runs
+        reg = min(r["registered"] for r in runs)
+        ate = float(np.median(seed_ates))
+        limit = ROBUST_MAX_ATE_OF.get((family, level), ROBUST_MAX_ATE)
+        cell = {"family": family, "level": level, "frames": runs[0]["frames"],
+                "registered": reg, "ate": ate, "seed_ates": seed_ates, "ate_limit": limit,
+                "pairs": runs[0]["pairs"], "worlds": runs,
+                "seconds": time.perf_counter() - t_cell}
+        cells.append(cell)
+        over = (f" over seeds 0-{len(seed_ates) - 1} "
+                f"({'/'.join(f'{a:.3f}' for a in seed_ates)})" if len(seed_ates) > 1 else "")
+        print(f"[{family:12s} {level:14s}] frames={cell['frames']:3d} reg>={reg:5.1%} "
+              f"ATE~{ate:8.4f} ({'/'.join(f'{r['ate']:.3f}' for r in runs)}){over} limit "
+              f"{limit:.4f}, P={cell['pairs']} ({cell['seconds']:.1f}s)", flush=True)
+        if reg < ROBUST_MIN_REGISTERED or not ate < limit:
+            failed.append(f"{family} {level}: registered {reg}, ATE {ate} (limit {limit})")
+    clean0 = cells[0]["worlds"][0]
+    out = {"phase": "robustness", "card": card, "frames": ROBUST_FRAMES, "worlds": ROBUST_WORLDS,
+           "max_keypoints": MAX_KPS, "cells": cells,
+           "repeat_equal": clean0["digest"] == clean0["repeat_digest"],
+           "match_pairs_launches": launches, "render_seconds": t_render,
+           "seconds": time.perf_counter() - t_phase}
+    print(json.dumps(out), flush=True)
+    require(not failed, f"robustness gate: {failed}")
+    require(out["repeat_equal"], f"robustness: the clean cell's world 0 repeat differs "
+            f"({clean0['digest'][:12]} / {clean0['repeat_digest'][:12]})")
+    check_kernel_at("robustness", *kernel_in, records[0], card, launches=launches, plain_reps=3,
+                    profile=False)
+    records[0]["robustness"]["cell_P"] = {f"{c['family']} {c['level']}".strip(): c["pairs"]
+                                          for c in cells}
+    return out
+
+
+# scripts/tune_deep_recall.py's held-out set: 48 SuperPoint-output pairs of
+# blob worlds from make_sp_batch with default_rng(99), 64 keypoints (the top
+# half kept), batches of 8; the script's thresholds, then the meta's
+# operating points
+RECALL_THRESHOLDS = (0.3, 0.4, 0.5, 0.6, 0.25, 0.15, 0.1)
+RECALL_PAIRS, RECALL_KPS, RECALL_SEED, RECALL_BATCH = 48, 64, 99, 8
+# the JAX package's figures on the same pairs, on the CPU (precision, recall;
+# JAX_PLATFORMS=cpu python scripts/deep_recall_jax.py, which runs
+# scripts/tune_deep_recall.py's own sweep)
+RECALL_JAX_CPU = {
+    0.3: (0.7921760391198044, 0.7414187643020596),
+    0.4: (0.841642228739003, 0.6552511415525114),
+    0.5: (0.875, 0.5753424657534246),
+    0.6: (0.9191489361702128, 0.4920273348519362),
+    0.25: (0.7527352297592997, 0.7926267281105991),
+    0.15: (0.704331450094162, 0.8617511520737328),
+    0.1: (0.6742556917688266, 0.8891454965357968)}
+# weights/lightglue.meta's figures (precision, recall), written when the
+# shipped matcher was trained
+RECALL_META = {0.5: (0.815, 0.516), 0.25: (0.725, 0.778), 0.15: (0.673, 0.865),
+               0.1: (0.642, 0.904)}
+RECALL_TOL = 0.02
+# one batch's assignment scores (probabilities) with kernel 3 against the
+# plain attention, through the 3 layers
+RECALL_SCORE_TOL = 1e-4
+
+
+def recall_counts(superpoint, matcher, thresholds, n_pairs=RECALL_PAIRS, max_kps=RECALL_KPS,
+                  seed=RECALL_SEED):
+    """scripts/tune_deep_recall.py's ``sweep`` counts: per threshold [tp,
+    fp, fn] of ``match_deep`` against the labels of ``make_sp_batch`` over
+    ``n_pairs`` held-out pairs in batches of 8 (one forward per batch and
+    threshold), on the modules' device."""
+    import torch
+    from eacham_tpu_torch.features.deep import lightglue as lg
+    from eacham_tpu_torch.features.deep.train import make_sp_batch
+
+    dev = next(matcher.parameters()).device
+    rng = np.random.default_rng(seed)
+    stats = {t: [0, 0, 0] for t in thresholds}
+    for _ in range(n_pairs // RECALL_BATCH):
+        kp0, d0, m0, kp1, d1, m1, gt = make_sp_batch(superpoint, rng, batch=RECALL_BATCH,
+                                                     max_kps=max_kps)
+        t = [torch.as_tensor(a, device=dev) for a in (kp0, d0, m0, kp1, d1, m1)]
+        for thr in thresholds:
+            idx, valid, _ = lg.match_deep(matcher, *t, threshold=thr)
+            idx, valid = idx.cpu().numpy(), valid.cpu().numpy()
+            correct = (idx == gt) & (gt >= 0)
+            stats[thr][0] += int((valid & correct).sum())
+            stats[thr][1] += int((valid & ~correct).sum())
+            stats[thr][2] += int((~valid & (gt >= 0)).sum())
+    return stats
+
+
+def precision_recall(counts) -> tuple[float, float]:
+    tp, fp, fn = counts
+    return tp / max(tp + fp, 1), tp / max(tp + fn, 1)
+
+
+def time_attention(q, k, v, m, card, label):
+    """Kernel 3 against its plain version on one block's inputs (three runs
+    with equal bits), timed a call, on the card alone (calls queued behind a
+    long product), beside the plain version, ``scaled_dot_product_attention``
+    and the bound. Returns its record."""
+    import torch.nn.functional as F
+    from eacham_tpu_torch.ops import attention as at
+
+    o = repeated(lambda: at.masked_attention_kernel(q, k, v, m), f"attention, {label}")
+    err = float((o - at.masked_attention_plain(q, k, v, m)).abs().max())
+    require(err < 1e-5 * max(1.0, float(v.abs().max())),
+            f"attention kernel off by {err} at the {label} shape")
+    B, H, Nq, D = q.shape
+    ms = cuda_ms(lambda: at.masked_attention_kernel(q, k, v, m), reps=50)
+    # a launch here is shorter than the wrapper's host work: the card's
+    # own time comes from launches queued behind a long product
+    dev_ms = queued_ms(lambda: at.masked_attention_kernel(q, k, v, m), reps=50)
+    plain_ms = cuda_ms(lambda: at.masked_attention_plain(q, k, v, m), reps=20)
+    # yardstick only, never called by the port
+    library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m[:, None, None, :])  # noqa: E731
+    library_ms = cuda_ms(library, reps=50)
+    library_dev_ms = queued_ms(library, reps=50)
+    flops = 4.0 * H * Nq * D * float(m.sum())
+    nbytes = 4.0 * (q.numel() + k.numel() + v.numel() + q.numel()) + m.numel()
+    t_fma, t_3x = flops / PEAK_FP32_FLOPS, 3.0 * flops / PEAK_TF32_FLOPS
+    t_ops, t_bytes = min(t_fma, t_3x), nbytes / PEAK_BYTES
+    bound_ms = max(t_ops, t_bytes) * 1e3
+    bound_by = ("operations (3xTF32)" if t_3x < t_fma else "operations") \
+        if t_ops >= t_bytes else "bytes"
+    print(f"attention kernel at the {label} shape [B={B}, H={H}, N={Nq}, D={D}], "
+          f"{int(m.sum())}/{m.numel()} keys live, on {card}: {ms:.4f} ms a call, "
+          f"{dev_ms:.4f} ms on the card alone (50 calls queued), plain "
+          f"{plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms a call "
+          f"and {library_dev_ms:.4f} on the card alone, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: 3 x {flops:.4g} FLOP, {nbytes:.4g} B), max abs "
+          f"err {err:.3g}, {REPEATS} equal runs", flush=True)
+    require(min(ms, dev_ms) >= bound_ms,
+            f"attention kernel {ms} / {dev_ms} ms is under its bound {bound_ms} ms")
+    return {"shape": [B, H, Nq, D], "live_keys": int(m.sum()), "max_abs_err": err,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "library_device_ms": library_dev_ms}
+
+
+def run_recall(dev, card, records):
+    """The shipped matcher's held-out operating curve (``recall``):
+    ``recall_counts`` on the card at RECALL_THRESHOLDS, launch counts set to
+    0 just before and read just after (12 attention launches a forward).
+    One JSON line with precision and recall at each threshold beside the
+    JAX package's CPU figures and the meta's; gate: within RECALL_TOL of the
+    JAX package's at every threshold. Then one batch's scores with kernel 3
+    against the plain attention (three kernel runs with equal bits) and the
+    kernel timed at this shape (``kernels[1].recall``)."""
+    import torch
+    from eacham_tpu_torch.features.deep import lightglue as lg
+    from eacham_tpu_torch.features.deep.frontend import load_frontend_params
+    from eacham_tpu_torch.features.deep.train import make_sp_batch
+    from eacham_tpu_torch.ops import attention as at
+    from eacham_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    superpoint, matcher, n_layers = load_frontend_params(device=dev)
+    sync(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    counts = recall_counts(superpoint, matcher, RECALL_THRESHOLDS)
+    sync(dev)
+    secs = time.perf_counter() - t0
+    launches = launch_counts()
+    forwards = len(RECALL_THRESHOLDS) * (RECALL_PAIRS // RECALL_BATCH)
+    rows, off = [], []
+    for thr in RECALL_THRESHOLDS:
+        p, r = precision_recall(counts[thr])
+        jp, jr = RECALL_JAX_CPU[thr]
+        rows.append({"threshold": thr, "precision": p, "recall": r, "tp_fp_fn": counts[thr],
+                     "jax_cpu": [jp, jr], "meta": list(RECALL_META.get(thr, ())) or None,
+                     "d_precision": p - jp, "d_recall": r - jr})
+        print(f"recall thr={thr:.2f}: precision {p:.4f} recall {r:.4f} (JAX on the CPU "
+              f"{jp:.4f} / {jr:.4f}; meta {RECALL_META.get(thr, 'none')})", flush=True)
+        if abs(p - jp) > RECALL_TOL or abs(r - jr) > RECALL_TOL:
+            off.append(thr)
+    out = {"phase": "recall", "card": card, "pairs": RECALL_PAIRS, "max_keypoints": RECALL_KPS,
+           "n_layers": n_layers, "rows": rows, "tolerance": RECALL_TOL, "seconds": secs,
+           "forwards": forwards, "launches": launches}
+    print(json.dumps(out), flush=True)
+    require(launches["masked_attention"] == 4 * n_layers * forwards,
+            f"recall: attention launches {launches}, want {4 * n_layers * forwards}")
+    require(not off, f"recall: thresholds {off} off the JAX package's figures by more than "
+            f"{RECALL_TOL}")
+
+    # kernel 3 on the first held-out batch: the scores with the kernel (three
+    # runs, equal bits) against the plain attention
+    batch = make_sp_batch(superpoint, np.random.default_rng(RECALL_SEED), batch=RECALL_BATCH,
+                          max_kps=RECALL_KPS)
+    t = [torch.as_tensor(a, device=dev) for a in batch[:6]]
+    idx_k, valid_k, scores_k = repeated(lambda: lg.match_deep(matcher, *t),
+                                        "recall batch 0 scores")
+    kernel_fwd = at.masked_attention
+    at.masked_attention = at.masked_attention_plain
+    try:
+        idx_p, valid_p, scores_p = lg.match_deep(matcher, *t)
+    finally:
+        at.masked_attention = kernel_fwd
+    err = float((scores_k - scores_p).abs().max())
+    agree = float(((valid_k == valid_p) & (~valid_k | (idx_k == idx_p))).float().mean())
+    print(f"recall batch 0 on {card}: scores with kernel 3 against the plain attention, max "
+          f"abs err {err:.3g} (limit {RECALL_SCORE_TOL}), match decisions at t=0.5 agree on "
+          f"{agree:.6f}, {REPEATS} kernel runs equal", flush=True)
+    require(err < RECALL_SCORE_TOL, f"recall: kernel-forward scores off by {err}")
+
+    seen = []
+    inner = lg.attention
+
+    def grab(q, k, v, m):
+        seen.append((q, k, v, m))
+        return inner(q, k, v, m)
+
+    lg.attention = grab
+    try:
+        lg.match_deep(matcher, *t)
+    finally:
+        lg.attention = inner
+    timing = time_attention(*seen[0], card, "recall")      # the first self block
+    records[1]["recall"] = {"launches": launches["masked_attention"], "launches_per_forward":
+                            4 * n_layers, "scores_max_abs_err": err, "decision_agreement": agree,
+                            **timing}
+    return out
+
+
+# the examples phase: each example once on the card as a subprocess of this
+# script, on two of the bench's frames, the 12-frame demo and the bench's 100
+# frames as PNGs in windows of 8
+EXAMPLES_TIMEOUT = 300
+# the stream example's input: a camera sliding sideways past a smooth
+# textured surface (the surface world with 2500 blobs and no jitter off
+# the sphere, so that overlapping blobs keep their order), 40 frames at
+# 512x384, 1024 keypoints (the matcher kernel takes at most 1152). The
+# example keeps SfmOptions' defaults (the reference's configs/SfmConfig.json:
+# 450 initial inliers at a 3 deg angle), which seed no pair on the bench's
+# orbit; here they do
+SLIDE_FRAMES, SLIDE_KPS = 40, 1024
+EXAMPLES_MIN_STREAMED, EXAMPLES_MAX_DEMO_ATE = int(0.95 * SLIDE_FRAMES), 0.1
+
+
+def slide_frames(n_frames: int = SLIDE_FRAMES, size=(WIDTH, HEIGHT)) -> np.ndarray:
+    """The stream example's frames, rendered by the process pool."""
+    from eacham_tpu_torch.utils.synthetic import make_surface_scene, orbit_poses
+
+    f = 1.2 * max(size)
+    intr = np.array([f, f, size[0] / 2, size[1] / 2], np.float32)
+    poses = orbit_poses(n_frames, radius=0.0, step_deg=0.0, advance=0.5)
+    blobs = make_surface_scene(np.random.default_rng(0), n_blobs=2500, jitter=0.0)
+    workers = render_workers()
+    chunks = [c for c in np.array_split(np.arange(n_frames), workers) if len(c)]
+    return np.concatenate(render_in_pool([(blobs, poses[c], intr, size) for c in chunks],
+                                         workers))
+
+
+def run_examples(images, card):
+    """``examples/{extract_match,reconstruct_synthetic,stream_reconstruct}
+    _torch.py`` on the card (``examples``), the four runs started together as
+    subprocesses: extract_match with either frontend (``--weights weights``)
+    on frames 0 and 1, the demo, and the stream over ``slide_frames`` in
+    windows of 8 at 1024 keypoints. Each must exit 0; the overlays must
+    exist, the demo's ATE be under 0.1 and the stream's transform.json hold
+    at least 95% of the frames. One JSON line; everything under OUT /
+    "examples", removed when the phase passes."""
+    import re
+    import shutil
+
+    import torch
+    from PIL import Image
+
+    out = OUT / "examples"
+    shutil.rmtree(out, ignore_errors=True)
+    for folder, frames in (("images", images[:2]), ("slide", slide_frames())):
+        (out / folder).mkdir(parents=True)
+        for i, img in enumerate(frames):
+            Image.fromarray((np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)).save(
+                out / folder / f"frame{i:03d}.png")
+    a, b = (str(out / "images" / f"frame{i:03d}.png") for i in (0, 1))
+    ex = ROOT / "examples"
+    runs = {
+        "extract_match_classical": [str(ex / "extract_match_torch.py"), a, b,
+                                    str(out / "classical.png")],
+        "extract_match_deep": [str(ex / "extract_match_torch.py"), a, b, str(out / "deep.png"),
+                               "--frontend", "deep", "--weights", "weights"],
+        "reconstruct_synthetic": [str(ex / "reconstruct_synthetic_torch.py"), str(out / "demo")],
+        "stream_reconstruct": [str(ex / "stream_reconstruct_torch.py"), str(out / "slide"),
+                               "--window", "8", "--max-keypoints", str(SLIDE_KPS),
+                               "--checkpoint", str(out / "stream_state.npz"),
+                               "--out", str(out / "transform.json")],
+    }
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, *argv], cwd=ROOT, text=True,
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for name, argv in runs.items()}
+    res, text = {}, {}
+    try:
+        for name, p in procs.items():
+            text[name], _ = p.communicate(timeout=EXAMPLES_TIMEOUT)
+            res[name] = {"rc": p.returncode, "seconds": time.perf_counter() - t0}
+            print(f"example {name}: rc {p.returncode}\n{text[name].strip()}", flush=True)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name in ("extract_match_classical", "extract_match_deep"):
+        m = re.search(r"^(?:classical|deep): (\d+) matches$", text[name], re.M)
+        res[name]["matches"] = int(m.group(1)) if m else None
+    m = re.search(r"^ATE RMSE: (\S+)", text["reconstruct_synthetic"], re.M)
+    ate = float(m.group(1)) if m else None
+    transform = out / "transform.json"
+    streamed = len(json.loads(transform.read_text())["frames"]) if transform.exists() else 0
+    rec = {"phase": "examples", "card": card, "runs": res, "demo_ate": ate,
+           "streamed_frames": streamed, "seconds": time.perf_counter() - t0}
+    print(json.dumps(rec), flush=True)
+    require(all(r["rc"] == 0 for r in res.values()),
+            f"examples: exit codes { {k: r['rc'] for k, r in res.items()} }")
+    require((out / "classical.png").exists() and (out / "deep.png").exists(),
+            "examples: an overlay is missing")
+    require(ate is not None and ate < EXAMPLES_MAX_DEMO_ATE, f"examples: the demo's ATE {ate}")
+    require((out / "demo" / "transform.json").exists(), "examples: the demo wrote no transform")
+    require(streamed >= EXAMPLES_MIN_STREAMED, f"examples: the stream's transform.json holds "
+            f"{streamed} frames")
+    shutil.rmtree(out)
+    return rec
+
+
 def dump_scene(path, scene, poses, intr):
     """Save the seeded scene's match tables for scripts/init_pair_spread_*.py."""
     t = {k: getattr(scene, k).cpu().numpy() for k in (
@@ -2833,6 +3353,8 @@ def main() -> int:
     run_parallel(desc, mask, scenes[0], dev, card)
     del desc, mask, scenes
     run_api(images, dev, card)
+    # the twelfth slice: the port's examples, as a user runs them
+    run_examples(images, card)
     del images
     # twice on the same TUM directory: one reconstruction per input
     rgbd_desc, rgbd_mask, rgbd_scene, rgbd_launches, rgbd_stats = run_rgbd(R, dev, card)
@@ -2843,6 +3365,10 @@ def main() -> int:
     del rgbd_desc, rgbd_mask, rgbd_scene
     # the eleventh slice: scripts/stress_100.py's 100 frames x 1024 tracks
     run_stress_100(dev, card, records)
+    # the twelfth slice: scripts/robustness_matrix.py's classical column and
+    # scripts/tune_deep_recall.py's held-out operating curve
+    run_robustness(dev, card, records)
+    run_recall(dev, card, records)
 
     # the eighth slice: training the deep frontend (kernel 3 in the forward pass)
     art = run_train(dev, card)

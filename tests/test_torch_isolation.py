@@ -225,6 +225,31 @@ def test_long_trajectory_and_stress_scripts_fail_without_a_card(argv, result):
     assert "no CUDA device" in out.stderr
 
 
+@pytest.mark.parametrize("argv, result", [
+    (["scripts/robustness_matrix_torch.py", "--frames", "6", "--worlds", "1"], '"cells"'),
+    (["scripts/tune_deep_recall_torch.py"], "before:"),
+    (["examples/extract_match_torch.py", "a.png", "b.png"], "matches"),
+    (["examples/reconstruct_synthetic_torch.py"], "ATE RMSE"),
+    (["examples/stream_reconstruct_torch.py", "tests/data"], "saved"),
+    (["scripts/robustness_split_torch.py", "--seeds", "1"], '"rows"'),
+], ids=["robustness_matrix_torch", "tune_deep_recall_torch", "extract_match_torch",
+        "reconstruct_synthetic_torch", "stream_reconstruct_torch", "robustness_split_torch"])
+def test_matrix_recall_scripts_and_examples_fail_without_a_card(argv, result, tmp_path):
+    """The ports of scripts/robustness_matrix.py and
+    scripts/tune_deep_recall.py, the seed split and the three examples print no result and
+    exit non-zero where there is no card (unless the caller asks for the
+    CPU with ``--device cpu``); they write nothing into the working
+    directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    out = subprocess.run([sys.executable, str(ROOT / argv[0]),
+                          *(str(ROOT / a) if a.startswith("tests/") else a for a in argv[1:])],
+                         capture_output=True, text=True, timeout=120, cwd=str(tmp_path))
+    assert out.returncode != 0 and result not in out.stdout
+    assert "no CUDA device" in out.stderr
+    assert not any(tmp_path.iterdir())
+
+
 def test_rgbd_datasets_frontend_and_parallel_entry_points_refuse_a_missing_card(tmp_path):
     """The seventh slice's entry points raise as well: the metric pipeline
     and its depth sampling, the TUM path past its host-side reader (the
