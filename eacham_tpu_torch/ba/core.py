@@ -53,6 +53,7 @@ import torch.distributed as dist
 
 from eacham_tpu_torch.geometry.linalg import inv3x3
 from eacham_tpu_torch.geometry.se3 import exp_se3, inverse_se3, log_se3
+from eacham_tpu_torch.utils import timer
 
 _EPS = 1e-12
 
@@ -273,7 +274,8 @@ def _layout(p: BAProblem, pairs: bool) -> _Layout:
              else p.obs_mask.new_zeros(()))
     key, order = torch.sort(torch.where(p.obs_mask, p.obs_pt * N + p.obs_cam, L * N),
                             stable=True)
-    equal, n_live = torch.stack([equal.long(), p.obs_mask.sum()]).tolist()
+    equal, n_live = timer.readback(torch.Tensor.tolist,
+                                   torch.stack([equal.long(), p.obs_mask.sum()]))
     key, order = key[:n_live], order[:n_live]
     pt = _Segments(L, order, torch.searchsorted(key, torch.arange(L + 1, device=dev) * N))
     pair = (_Segments(L * N, order, torch.searchsorted(key, torch.arange(L * N + 1, device=dev)))
@@ -283,7 +285,7 @@ def _layout(p: BAProblem, pairs: bool) -> _Layout:
     key, order = torch.sort(torch.where(p.obs_mask, p.obs_cam, N), stable=True)
     start = torch.searchsorted(key, torch.arange(N + 1, device=dev))
     count = start.diff()
-    j = torch.arange(int(count.max()), device=dev)
+    j = torch.arange(timer.readback(int, count.max()), device=dev)
     rows = order[(start[:-1, None] + j).clamp(max=max(O - 1, 0))]
     return _Layout(_Segments(N, slots=torch.where(j < count[:, None], rows, O)), pt, pair)
 
@@ -531,7 +533,7 @@ def _solve_schur_pcg(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
     stop = cfg.cg_tol * (torch.sqrt((b_red_c * b_red_c).sum() + (b_red_k * b_red_k).sum())
                          + 1e-20)
     for _ in range(cfg.cg_iters):
-        if not bool(torch.sqrt((r_c * r_c).sum() + (r_k2 * r_k2).sum()) > stop):
+        if not timer.readback(bool, torch.sqrt((r_c * r_c).sum() + (r_k2 * r_k2).sum()) > stop):
             break
         Ap_c, Ap_k = S_mv(p_c, p_k)
         pAp = (p_c * Ap_c).sum() + (p_k * Ap_k).sum()
@@ -670,7 +672,7 @@ def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig(), group=None):
         done = (accept & (rel < cfg.tolerance)) | stalled
         cost = torch.where(accept, new_cost, cost)
         n_it += 1
-        if bool(done):      # the iteration's one read-back
+        if timer.readback(bool, done):      # the iteration's one read-back
             break
     info = {"initial_cost": cost0, "final_cost": cost, "iterations": n_it, "lambda": lam}
     return poses, points, intr, info

@@ -10,6 +10,7 @@ import torch
 from eacham_tpu_torch.device import as_tensor, resolve_device
 from eacham_tpu_torch.features.descriptor import describe_from_stacks
 from eacham_tpu_torch.features.detector import N_OCTAVES, detect_from_stacks, octave_stacks
+from eacham_tpu_torch.utils import timer
 
 
 @torch.no_grad()
@@ -26,19 +27,20 @@ def extract_features(
     the detector and the descriptor.
 
     Returns ``(xy [N, K, 2], desc [N, K, 256], score [N, K], mask [N, K])``
-    on ``device``.
+    on ``device``. A span ``features.frontend`` of ``utils.timer``.
     """
     dev = resolve_device(device)
-    images = as_tensor(images, dev, torch.float32)
-    outs = []
-    for s in range(0, images.shape[0], frame_chunk):
-        stacks = octave_stacks(images[s:s + frame_chunk], N_OCTAVES)
-        xy, sidx, score, mask = detect_from_stacks(
-            stacks, max_keypoints=max_keypoints,
-            contrast_threshold=contrast_threshold)
-        desc = describe_from_stacks(stacks, xy, sidx, mask)
-        outs.append((xy, desc, score, mask))
-    return tuple(torch.cat([o[i] for o in outs]) for i in range(4))
+    with timer.span("features.frontend"):
+        images = as_tensor(images, dev, torch.float32)
+        outs = []
+        for s in range(0, images.shape[0], frame_chunk):
+            stacks = octave_stacks(images[s:s + frame_chunk], N_OCTAVES)
+            xy, sidx, score, mask = detect_from_stacks(
+                stacks, max_keypoints=max_keypoints,
+                contrast_threshold=contrast_threshold)
+            desc = describe_from_stacks(stacks, xy, sidx, mask)
+            outs.append((xy, desc, score, mask))
+        return tuple(torch.cat([o[i] for o in outs]) for i in range(4))
 
 
 @dataclass

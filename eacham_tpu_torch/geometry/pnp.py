@@ -16,6 +16,7 @@ from eacham_tpu_torch.geometry.camera import pixel_to_normalized, project_hom
 from eacham_tpu_torch.geometry.linalg import orthonormalize_rotation, smallest_eigvec
 from eacham_tpu_torch.geometry.ransac import ransac, take_rows
 from eacham_tpu_torch.geometry.se3 import exp_se3, hat, rt_to_mat, transform_points
+from eacham_tpu_torch.utils import timer
 
 _EPS = 1e-12
 
@@ -109,7 +110,8 @@ def gauss_newton_pose(T0: torch.Tensor, pts3d: torch.Tensor, uv: torch.Tensor,
         r = project_hom(pc, intr) - uv                        # [..., N, 2]
         JtJ = torch.einsum("...nik,...nij->...kj", J * w, J)
         Jtr = torch.einsum("...nik,...ni->...k", J * w, r)
-        dx = -torch.linalg.solve(JtJ + damping * eye6, Jtr)
+        # torch.linalg.solve synchronizes the card with the host (its error check)
+        dx = -timer.readback(torch.linalg.solve, JtJ + damping * eye6, Jtr)
         T = exp_se3(dx) @ T
     return T
 

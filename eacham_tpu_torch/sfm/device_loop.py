@@ -6,7 +6,13 @@ The reference compiles the whole loop into one on-device program; here it
 is a host loop over tensor ops whose state stays on the device. Per
 registration the host reads back the candidate (frames and score), its PnP
 inlier count and, when a local BA is due, the window's landmark count and
-one flag per LM iteration.
+one flag per LM iteration; each read is counted (``utils.timer.readback``).
+
+Each iteration's stages are spans of ``utils.timer`` (recorded while a
+profiler runs): ``sfm.device_loop.next_view``, ``.pnp``, ``.triangulate``
+(both passes) and ``.local_ba`` (the window build, ``refine_ba`` and the
+scatters; its count ``iterations``). ``registered`` and ``pnp_failed`` are
+counted on the caller's span (``sfm.device_loop`` in ``sfm/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from eacham_tpu_torch.sfm.scene import (
     Scene, ba_problem_windowed, scatter_window_points, scatter_window_poses,
 )
 from eacham_tpu_torch.sfm.triangulate import triangulate_frame
+from eacham_tpu_torch.utils import timer
 
 
 @torch.no_grad()
@@ -43,6 +50,7 @@ def registration_sweep_step(
     max_steps: int | None = None,
     ba_every: int = 1,
     ba_free_span: int = 0,
+    local_ba: dict | None = None,
 ):
     """Register up to ``max_steps`` frames. Returns (scene, excluded,
     n_registered, more), ``more`` meaning that the loop stopped on the step
@@ -52,53 +60,68 @@ def registration_sweep_step(
     triangulate(2 observers) -> local BA on every ``ba_every``-th
     iteration (gate: ``min_ba_landmarks``) -> triangulate(3 observers). A
     frame whose PnP fails is marked excluded and never tried again.
+    ``local_ba``: a dict whose ``calls`` and ``iterations`` each local BA
+    run adds to.
     """
     N = scene.kp_mask.shape[0]
     limit = N if max_steps is None else min(max_steps, N)
     n_reg, it, has = 0, 0, True
     while it < limit:
-        prev, cur, score = (int(v) for v in torch.stack(next_best_view(scene, excluded)).tolist())
+        with timer.span("sfm.device_loop.next_view"):
+            prev, cur, score = (int(v) for v in timer.readback(
+                torch.Tensor.tolist, torch.stack(next_best_view(scene, excluded))))
         has = score >= 0
         if not has:
             break
-        T, n_inl = pnp_register(scene, prev, cur, fp_tbl[cur], generator,
-                                threshold=4.0, n_hyp=n_hyp_pnp, pair_only=pnp_pair_only)
-        if int(n_inl) >= min_pnp_inliers:
+        with timer.span("sfm.device_loop.pnp"):
+            T, n_inl = pnp_register(scene, prev, cur, fp_tbl[cur], generator,
+                                    threshold=4.0, n_hyp=n_hyp_pnp, pair_only=pnp_pair_only)
+            n_inl = timer.readback(int, n_inl)
+        if n_inl >= min_pnp_inliers:
             scene = _register(scene, cur, T, fp_tbl[cur], it, max_repr_error, min_tri_angle,
                               min_ba_landmarks, ba_cfg, max_observers, ba_max_cams,
-                              ba_max_obs, ba_max_lms, ba_every, ba_free_span)
+                              ba_max_obs, ba_max_lms, ba_every, ba_free_span, local_ba)
             n_reg += 1
+            timer.add("registered")
         else:
             excluded = excluded.clone()
             excluded[cur] = True
+            timer.add("pnp_failed")
         it += 1
     return scene, excluded, n_reg, has and it >= limit
 
 
 def _register(scene, cur, T, pid_row, it, max_repr_error, min_tri_angle, min_ba_landmarks,
               ba_cfg, max_observers, ba_max_cams, ba_max_obs, ba_max_lms, ba_every,
-              ba_free_span):
+              ba_free_span, local_ba):
     """Take frame ``cur`` into the map with pose ``T``."""
     scene = set_pose(scene, cur, T)
-    scene, _, _ = triangulate_frame(scene, cur, pid_row, 2, max_repr_error, min_tri_angle,
-                                    max_observers=max_observers)
+    with timer.span("sfm.device_loop.triangulate"):
+        scene, _, _ = triangulate_frame(scene, cur, pid_row, 2, max_repr_error, min_tri_angle,
+                                        max_observers=max_observers)
     # local BA is a large share of the sweep's cost; ba_every > 1 spreads it over
     # registrations, and the frames it skips are refined by the next window
     # that holds them and by the interim and global BA
     if it % ba_every == 0:
-        # the local problem is compacted to a fixed window: the new frame's
-        # neighbourhood is small at any scene size
-        nb = local_neighbors(scene, cur)
-        prob, cam_list, cam_on, lm_list, lm_on = ba_problem_windowed(
-            scene, nb, max_cams=ba_max_cams, max_obs=ba_max_obs, cur=cur,
-            max_lms=ba_max_lms, free_span=ba_free_span)
-        if int(prob.pt_in_ba.sum()) >= min_ba_landmarks:
-            poses, points, intr, _ = refine_ba(prob, ba_cfg)
-            scene = scatter_window_poses(scene, cam_list, cam_on, poses)
-            scene = scatter_window_points(scene, lm_list, lm_on, points)
-            scene = scene._replace(intr=intr)
-    scene, _, _ = triangulate_frame(scene, cur, pid_row, 3, max_repr_error, min_tri_angle,
-                                    max_observers=max_observers)
+        with timer.span("sfm.device_loop.local_ba") as sp:
+            # the local problem is compacted to a fixed window: the new frame's
+            # neighbourhood is small at any scene size
+            nb = local_neighbors(scene, cur)
+            prob, cam_list, cam_on, lm_list, lm_on = ba_problem_windowed(
+                scene, nb, max_cams=ba_max_cams, max_obs=ba_max_obs, cur=cur,
+                max_lms=ba_max_lms, free_span=ba_free_span)
+            if timer.readback(int, prob.pt_in_ba.sum()) >= min_ba_landmarks:
+                poses, points, intr, info = refine_ba(prob, ba_cfg)
+                sp.add("iterations", info["iterations"])
+                if local_ba is not None:
+                    local_ba["calls"] += 1
+                    local_ba["iterations"] += info["iterations"]
+                scene = scatter_window_poses(scene, cam_list, cam_on, poses)
+                scene = scatter_window_points(scene, lm_list, lm_on, points)
+                scene = scene._replace(intr=intr)
+    with timer.span("sfm.device_loop.triangulate"):
+        scene, _, _ = triangulate_frame(scene, cur, pid_row, 3, max_repr_error, min_tri_angle,
+                                        max_observers=max_observers)
     return scene
 
 

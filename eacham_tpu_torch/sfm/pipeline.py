@@ -68,6 +68,7 @@ from eacham_tpu_torch.sfm.scene import (
 from eacham_tpu_torch.sfm.submap import submap_align
 from eacham_tpu_torch.sfm.triangulate import first_true, triangulate_frame
 from eacham_tpu_torch.sfm.twoview import find_best_pair
+from eacham_tpu_torch.utils import timer
 
 
 @dataclass(frozen=True)
@@ -230,6 +231,8 @@ def next_best_view(scene: Scene, excluded: torch.Tensor):
     P = i.shape[0]
     fwd = best < P
     row = torch.where(fwd, best, best - P)
+    # an index that is a 0-d device tensor is read to the host: five waits
+    timer.add("readbacks", 5)
     prev = torch.where(fwd, i[row], j[row])
     cur = torch.where(fwd, j[row], i[row])
     return prev, cur, s[best]
@@ -328,7 +331,8 @@ def _ba(scene: Scene, cam_in_ba, cfg: BAConfig, min_landmarks: int,
     *state, cam_in_ba = broadcast_state(
         [getattr(scene, f) for f in _SCENE_STATE] + [cam_in_ba], mesh)
     scene = scene._replace(**dict(zip(_SCENE_STATE, state)))
-    n_obs, n_lms = torch.stack(ba_problem_counts(scene, cam_in_ba)).tolist()
+    n_obs, n_lms = timer.readback(torch.Tensor.tolist,
+                                  torch.stack(ba_problem_counts(scene, cam_in_ba)))
     if n_lms < min_landmarks:
         return scene, None
     prob, cam_list, cam_on, lm_list, lm_on = ba_problem_windowed(
@@ -366,6 +370,7 @@ def set_pose(scene: Scene, frame: int, T: torch.Tensor) -> Scene:
     pose = scene.pose.clone()
     pose[frame] = T
     pose_valid = scene.pose_valid.clone()
+    timer.add("readbacks")          # a host scalar written to the card waits for it
     pose_valid[frame] = True
     return scene._replace(pose=pose, pose_valid=pose_valid)
 
@@ -448,34 +453,34 @@ def initialize_sfm(
         kp_mask = kp_mask & enough[:, None]
 
     # ---- match graph ------------------------------------------------------
-    t = time.perf_counter()
-    if match_tables is None:
-        cand = None
-        if opt.pair_window > 0:
-            cand = candidate_pairs(descriptors, kp_mask, window=opt.pair_window,
-                                   retrieval_k=opt.pair_retrieval_k, ladder=opt.pair_ladder)
-            log(f"candidate pairs: {cand.shape[0]} of {N * (N - 1) // 2}")
-        verify = None
-        if opt.verify_hyps > 0:
-            verify = (keypoints, intr, generator, opt.max_repr_error, opt.verify_hyps)
-        pair_idx, pair_ok, m_ij, v_ij, m_ji, v_ji = build_match_tables(
-            descriptors, kp_mask, ratio=opt.match_ratio, min_matches=opt.min_matches,
-            chunk=opt.match_chunk, verify=verify, pair_idx=cand, mesh=mesh)
-    elif len(match_tables) == 6:
-        pair_idx, pair_ok, m_ij, v_ij, m_ji, v_ji = (
-            as_tensor(x, dev) for x in match_tables)
-    else:
-        m_ij, v_ij, pair_ok = (as_tensor(x, dev) for x in match_tables)
-        pair_idx = torch.as_tensor(all_pairs_index(N), device=dev)
-        if opt.verify_hyps > 0:
-            v_ij = verify_matches_epipolar(
-                keypoints, pair_idx, m_ij, v_ij, intr, generator,
-                px_threshold=opt.max_repr_error, n_hyp=opt.verify_hyps)
-            pair_ok = pair_ok & (v_ij.sum(-1) > opt.min_matches)
-        v_ij = v_ij & pair_ok[:, None]
-        m_ji, v_ji = invert_matches(m_ij, v_ij)
-    _sync(dev)
-    seconds["match_graph"] = time.perf_counter() - t
+    with timer.span("sfm.matches") as sp:
+        if match_tables is None:
+            cand = None
+            if opt.pair_window > 0:
+                cand = candidate_pairs(descriptors, kp_mask, window=opt.pair_window,
+                                       retrieval_k=opt.pair_retrieval_k, ladder=opt.pair_ladder)
+                log(f"candidate pairs: {cand.shape[0]} of {N * (N - 1) // 2}")
+            verify = None
+            if opt.verify_hyps > 0:
+                verify = (keypoints, intr, generator, opt.max_repr_error, opt.verify_hyps)
+            pair_idx, pair_ok, m_ij, v_ij, m_ji, v_ji = build_match_tables(
+                descriptors, kp_mask, ratio=opt.match_ratio, min_matches=opt.min_matches,
+                chunk=opt.match_chunk, verify=verify, pair_idx=cand, mesh=mesh)
+        elif len(match_tables) == 6:
+            pair_idx, pair_ok, m_ij, v_ij, m_ji, v_ji = (
+                as_tensor(x, dev) for x in match_tables)
+        else:
+            m_ij, v_ij, pair_ok = (as_tensor(x, dev) for x in match_tables)
+            pair_idx = torch.as_tensor(all_pairs_index(N), device=dev)
+            if opt.verify_hyps > 0:
+                v_ij = verify_matches_epipolar(
+                    keypoints, pair_idx, m_ij, v_ij, intr, generator,
+                    px_threshold=opt.max_repr_error, n_hyp=opt.verify_hyps)
+                pair_ok = pair_ok & (v_ij.sum(-1) > opt.min_matches)
+            v_ij = v_ij & pair_ok[:, None]
+            m_ji, v_ji = invert_matches(m_ij, v_ij)
+        _sync(dev)
+    seconds["match_graph"] = sp.seconds
     del descriptors
     scene = make_scene(keypoints, kp_mask, pair_idx, pair_ok, m_ij, v_ij,
                        m_ji, v_ji, intr, lm_capacity=opt.lm_capacity)
@@ -487,25 +492,25 @@ def initialize_sfm(
              "initialized": False, "init_pair": None, "pair_row": None,
              "n_good": 0, "used_homography": False, "seconds": seconds}
 
-    # ---- initial pair -------------------------------------------------------
-    t = time.perf_counter()
-    score = rank_init_pairs(scene, float(max(image_size))).cpu().numpy()
-    order = np.argsort(-score)
-    order = order[score[order] > 0]
-    pair_row, init = find_best_pair(
-        generator, scene, order,
-        min_initial_inliers=opt.min_initial_inliers,
-        max_repr_error=opt.init_max_repr_error,
-        min_tri_angle=opt.init_min_tri_angle,
-        chunk=opt.init_chunk, n_hyp_e=opt.ransac_hyps_e, n_hyp_h=opt.ransac_hyps_h)
-    seconds["init_pair"] = time.perf_counter() - t
+    # ---- initial pair: the search, then the seeding --------------------------
     n_good = used_h = 0
-    if pair_row is not None:
-        t = time.perf_counter()
-        scene = seed_initial_pair(scene, pair_row, init.T, init.points, init.point_ok)
-        _sync(dev)
-        seconds["seed"] = time.perf_counter() - t
-        n_good, used_h = int(init.n_good), int(init.used_homography)
+    with timer.span("sfm.pipeline.init_pair") as sp:
+        score = rank_init_pairs(scene, float(max(image_size))).cpu().numpy()
+        order = np.argsort(-score)
+        order = order[score[order] > 0]
+        pair_row, init = find_best_pair(
+            generator, scene, order,
+            min_initial_inliers=opt.min_initial_inliers,
+            max_repr_error=opt.init_max_repr_error,
+            min_tri_angle=opt.init_min_tri_angle,
+            chunk=opt.init_chunk, n_hyp_e=opt.ransac_hyps_e, n_hyp_h=opt.ransac_hyps_h)
+        if pair_row is not None:
+            with timer.span("sfm.pipeline.seed") as sd:
+                scene = seed_initial_pair(scene, pair_row, init.T, init.points, init.point_ok)
+                _sync(dev)
+            seconds["seed"] = sd.seconds
+            n_good, used_h = int(init.n_good), int(init.used_homography)
+    seconds["init_pair"] = sp.seconds - seconds.get("seed", 0.0)
     # the pair search draws on each rank: rank 0's pair (or none) holds
     scene, _, (pair_row, n_good, used_h) = sync_ranks(
         mesh, scene, None, -1 if pair_row is None else pair_row, n_good, used_h)
@@ -581,7 +586,8 @@ def run_sfm(
 
     ``stats``: what ``initialize_sfm`` reports, plus ``registered``,
     ``excluded``, ``landmarks``, the global BA's ``global_ba`` (iterations,
-    initial and final cost; None when it did not run), ``map_refine`` (one
+    initial and final cost; None when it did not run), the sweep's
+    ``local_ba`` (``calls`` and their LM ``iterations``), ``map_refine`` (one
     entry per refinement round), ``loop`` (the loop-closing stage, when it
     ran: see ``_close_loops``), ``checkpoints`` (scene checkpoints written,
     see ``resume_sfm``), and the wall seconds of ``sweep``, ``loop`` and
@@ -598,49 +604,54 @@ def run_sfm(
         if verbose:
             print(f"[sfm +{time.perf_counter() - t0:7.2f}s]", *a, flush=True)
 
-    scene, stats = initialize_sfm(
-        keypoints, descriptors, kp_mask, image_size, intr=intr, options=opt,
-        generator=generator, device=dev, match_tables=match_tables, verbose=verbose)
-    N, K = scene.kp_mask.shape
-    stats.update(registered=0, excluded=0, landmarks=0, global_ba=None)
-    if not stats["initialized"]:
+    with timer.span("sfm.pipeline.run_sfm"):
+        scene, stats = initialize_sfm(
+            keypoints, descriptors, kp_mask, image_size, intr=intr, options=opt,
+            generator=generator, device=dev, match_tables=match_tables, verbose=verbose)
+        N, K = scene.kp_mask.shape
+        stats.update(registered=0, excluded=0, landmarks=0, global_ba=None,
+                     local_ba={"calls": 0, "iterations": 0})
+        if not stats["initialized"]:
+            return scene, stats
+
+        n_far = _n_far(scene)
+        log(f"match graph: {n_far} long-range edges")
+        fp_tbl = torch.as_tensor(frame_pair_table(scene.pair_idx.cpu().numpy(), N), device=dev)
+        refine_cfg, global_cfg = _ba_configs(opt)
+
+        # ---- incremental loop -------------------------------------------------
+        written: list[int] = []
+        with timer.span("sfm.device_loop") as sp:
+            excluded = torch.zeros(N, dtype=torch.bool, device=dev)
+            if opt.device_loop:
+                on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log, mesh), opt, log,
+                                              written, mesh)
+                scene, excluded, n_reg = _sweep(scene, excluded, fp_tbl, generator, opt,
+                                                refine_cfg, on_segment, mesh, stats["local_ba"])
+                log(f"sweep: +{n_reg} frames registered, "
+                    f"{timer.readback(int, excluded.sum())} excluded")
+            else:
+                scene, excluded = _host_loop(scene, excluded, fp_tbl, generator, opt, refine_cfg,
+                                             log, stats["local_ba"])
+                scene, excluded, _ = sync_ranks(mesh, scene, excluded)
+            _sync(dev)
+        stats["seconds"]["sweep"] = sp.seconds
+
+        if opt.device_loop and opt.loop_close and opt.pair_window > 0 and n_far > 0:
+            with timer.span("sfm.pipeline._close_loops") as sp:
+                scene, stats["loop"] = _close_loops(scene, fp_tbl, generator, opt, n_far, log)
+                _sync(dev)
+            stats["seconds"]["loop"] = sp.seconds
+
+        with timer.span("sfm.pipeline._finalize") as sp:
+            scene, final = _finalize(scene, excluded, opt, global_cfg, log,
+                                     abs_anchors=abs_anchors, fp_tbl=fp_tbl, n_loop_edges=n_far,
+                                     mesh=mesh)
+            _sync(dev)
+        stats["seconds"]["finalize"] = sp.seconds
+        stats.update(final, checkpoints=len(written))
+        log(f"done: {stats['registered']}/{N} frames registered, {stats['landmarks']} landmarks")
         return scene, stats
-
-    n_far = _n_far(scene)
-    log(f"match graph: {n_far} long-range edges")
-    fp_tbl = torch.as_tensor(frame_pair_table(scene.pair_idx.cpu().numpy(), N), device=dev)
-    refine_cfg, global_cfg = _ba_configs(opt)
-
-    # ---- incremental loop -----------------------------------------------------
-    t = time.perf_counter()
-    excluded = torch.zeros(N, dtype=torch.bool, device=dev)
-    written: list[int] = []
-    if opt.device_loop:
-        on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log, mesh), opt, log,
-                                      written, mesh)
-        scene, excluded, n_reg = _sweep(scene, excluded, fp_tbl, generator, opt,
-                                        refine_cfg, on_segment, mesh)
-        log(f"sweep: +{n_reg} frames registered, {int(excluded.sum())} excluded")
-    else:
-        scene, excluded = _host_loop(scene, excluded, fp_tbl, generator, opt, refine_cfg, log)
-        scene, excluded, _ = sync_ranks(mesh, scene, excluded)
-    _sync(dev)
-    stats["seconds"]["sweep"] = time.perf_counter() - t
-
-    if opt.device_loop and opt.loop_close and opt.pair_window > 0 and n_far > 0:
-        t = time.perf_counter()
-        scene, stats["loop"] = _close_loops(scene, fp_tbl, generator, opt, n_far, log)
-        _sync(dev)
-        stats["seconds"]["loop"] = time.perf_counter() - t
-
-    t = time.perf_counter()
-    scene, final = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors,
-                             fp_tbl=fp_tbl, n_loop_edges=n_far, mesh=mesh)
-    _sync(dev)
-    stats["seconds"]["finalize"] = time.perf_counter() - t
-    stats.update(final, checkpoints=len(written))
-    log(f"done: {stats['registered']}/{N} frames registered, {stats['landmarks']} landmarks")
-    return scene, stats
 
 
 def _interim_ba(opt: SfmOptions, global_cfg: BAConfig, log, mesh=None):
@@ -651,8 +662,11 @@ def _interim_ba(opt: SfmOptions, global_cfg: BAConfig, log, mesh=None):
     interim_cfg = global_cfg._replace(max_iters=opt.interim_ba_iters)
 
     def on_segment(s):
-        s, info = _ba(s, s.pose_valid, interim_cfg, opt.min_ba_landmarks,
-                      program_iters=opt.ba_program_iters, mesh=mesh)
+        with timer.span("ba.interim") as sp:
+            s, info = _ba(s, s.pose_valid, interim_cfg, opt.min_ba_landmarks,
+                          program_iters=opt.ba_program_iters, mesh=mesh)
+            if info is not None:
+                sp.add("iterations", info["iterations"])
         if info is not None:
             log(f"interim BA: {float(info['initial_cost']):.1f} -> "
                 f"{float(info['final_cost']):.1f}")
@@ -690,9 +704,10 @@ def _with_checkpoint(on_segment, opt: SfmOptions, log, written: list | None = No
 
 
 def _sweep(scene: Scene, excluded, fp_tbl, generator, opt: SfmOptions, refine_cfg: BAConfig,
-           on_segment, mesh=None):
+           on_segment, mesh=None, local_ba=None):
     """``device_loop.registration_sweep`` with a run's options. Returns
-    (scene, excluded, n_registered)."""
+    (scene, excluded, n_registered); the local BAs add their calls and
+    iterations to ``local_ba``."""
     from eacham_tpu_torch.sfm.device_loop import registration_sweep
 
     N, K = scene.kp_mask.shape
@@ -706,7 +721,7 @@ def _sweep(scene: Scene, excluded, fp_tbl, generator, opt: SfmOptions, refine_cf
         ba_max_obs=min(opt.local_ba_max_obs, min(opt.local_ba_max_cams, N) * K),
         ba_max_lms=opt.local_ba_max_lms, ba_every=opt.local_ba_every,
         ba_free_span=opt.local_ba_free_span, segment=opt.sweep_segment,
-        on_segment=on_segment, mesh=mesh)
+        on_segment=on_segment, mesh=mesh, local_ba=local_ba)
 
 
 @torch.no_grad()
@@ -731,7 +746,8 @@ def resume_sfm(
     the PnP draws; by default it is seeded ``options.seed + 1``.
 
     Returns ``(scene, stats)``: ``registered``, ``landmarks``,
-    ``initialized``, ``checkpoints`` (writes made) and the wall ``seconds``
+    ``initialized``, ``checkpoints`` (writes made), the sweep's ``local_ba``
+    (as ``run_sfm``'s) and the wall ``seconds``
     of ``sweep`` (and ``finalize``), then with ``finalize`` ``excluded``,
     ``global_ba``, ``map_refine`` and ``init_pair`` (-1, -1), without it
     ``finalized`` False. The finalization runs the map-refinement rounds
@@ -741,52 +757,57 @@ def resume_sfm(
     opt = options
     dev = resolve_device(device)
     mesh = _mesh(opt, dev)
-    scene = Scene(*(as_tensor(x, dev) for x in scene))
-    N, K = scene.kp_mask.shape
-    excluded = (torch.zeros(N, dtype=torch.bool, device=dev) if excluded is None
-                else as_tensor(excluded, dev, torch.bool))
-    scene, excluded, _ = sync_ranks(mesh, scene, excluded, fields=Scene._fields)
+    with timer.span("sfm.pipeline.resume_sfm"):
+        scene = Scene(*(as_tensor(x, dev) for x in scene))
+        N, K = scene.kp_mask.shape
+        excluded = (torch.zeros(N, dtype=torch.bool, device=dev) if excluded is None
+                    else as_tensor(excluded, dev, torch.bool))
+        scene, excluded, _ = sync_ranks(mesh, scene, excluded, fields=Scene._fields)
 
-    def log(*a):
-        if verbose:
-            print("[sfm]", *a, flush=True)
+        def log(*a):
+            if verbose:
+                print("[sfm]", *a, flush=True)
 
-    if int(scene.pose_valid.sum()) < 2:
-        log("resume: scene has no initialized pair")
-        return scene, {"registered": 0, "landmarks": 0, "initialized": False}
+        if int(scene.pose_valid.sum()) < 2:
+            log("resume: scene has no initialized pair")
+            return scene, {"registered": 0, "landmarks": 0, "initialized": False}
 
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(opt.seed + 1)
-    fp_tbl = torch.as_tensor(frame_pair_table(scene.pair_idx.cpu().numpy(), N), device=dev)
-    refine_cfg, global_cfg = _ba_configs(opt)
-    written: list[int] = []
-    t = time.perf_counter()
-    on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log, mesh), opt, log, written,
-                                  mesh)
-    scene, excluded, n_reg = _sweep(scene, excluded, fp_tbl, generator, opt, refine_cfg,
-                                    on_segment, mesh)
-    _sync(dev)
-    seconds = {"sweep": time.perf_counter() - t}
-    log(f"resume sweep: +{n_reg} frames registered")
-    if not finalize:
-        return scene, {"registered": int((scene.pose_valid & ~excluded).sum()),
-                       "landmarks": int(scene.lm_valid.sum()), "initialized": True,
-                       "finalized": False, "checkpoints": len(written), "seconds": seconds}
-    t = time.perf_counter()
-    scene, stats = _finalize(scene, excluded, opt, global_cfg, log, abs_anchors=abs_anchors,
-                             fp_tbl=fp_tbl, n_loop_edges=_n_far(scene), mesh=mesh)
-    _sync(dev)
-    seconds["finalize"] = time.perf_counter() - t
-    stats.update(initialized=True, init_pair=(-1, -1), checkpoints=len(written),
-                 seconds=seconds)
-    log(f"done: {stats['registered']}/{N} frames registered, {stats['landmarks']} landmarks")
-    return scene, stats
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(opt.seed + 1)
+        fp_tbl = torch.as_tensor(frame_pair_table(scene.pair_idx.cpu().numpy(), N), device=dev)
+        refine_cfg, global_cfg = _ba_configs(opt)
+        written: list[int] = []
+        local_ba = {"calls": 0, "iterations": 0}
+        with timer.span("sfm.device_loop") as sp:
+            on_segment = _with_checkpoint(_interim_ba(opt, global_cfg, log, mesh), opt, log,
+                                          written, mesh)
+            scene, excluded, n_reg = _sweep(scene, excluded, fp_tbl, generator, opt, refine_cfg,
+                                            on_segment, mesh, local_ba)
+            _sync(dev)
+        seconds = {"sweep": sp.seconds}
+        log(f"resume sweep: +{n_reg} frames registered")
+        if not finalize:
+            return scene, {"registered": int((scene.pose_valid & ~excluded).sum()),
+                           "landmarks": int(scene.lm_valid.sum()), "initialized": True,
+                           "finalized": False, "checkpoints": len(written), "seconds": seconds,
+                           "local_ba": local_ba}
+        with timer.span("sfm.pipeline._finalize") as sp:
+            scene, stats = _finalize(scene, excluded, opt, global_cfg, log,
+                                     abs_anchors=abs_anchors, fp_tbl=fp_tbl,
+                                     n_loop_edges=_n_far(scene), mesh=mesh)
+            _sync(dev)
+        seconds["finalize"] = sp.seconds
+        stats.update(initialized=True, init_pair=(-1, -1), checkpoints=len(written),
+                     seconds=seconds, local_ba=local_ba)
+        log(f"done: {stats['registered']}/{N} frames registered, {stats['landmarks']} landmarks")
+        return scene, stats
 
 
-def _host_loop(scene, excluded, fp_tbl, generator, opt: SfmOptions, refine_cfg, log):
+def _host_loop(scene, excluded, fp_tbl, generator, opt: SfmOptions, refine_cfg, log, local_ba):
     """The plain per-frame loop (``device_loop=False``): a local BA over all
     registered neighbours at every registration, no segments, no interim
-    BA. Returns (scene, excluded)."""
+    BA. Returns (scene, excluded); the local BAs add their calls and
+    iterations to ``local_ba``."""
     N = scene.kp_mask.shape[0]
     for _ in range(N):
         prev, cur, score = (int(v) for v in torch.stack(next_best_view(scene, excluded)).tolist())
@@ -805,6 +826,9 @@ def _host_loop(scene, excluded, fp_tbl, generator, opt: SfmOptions, refine_cfg, 
             scene, cur, fp_tbl[cur], 2, opt.max_repr_error, opt.min_tri_angle,
             max_observers=opt.max_observers)
         scene, info = _ba(scene, local_neighbors(scene, cur), refine_cfg, opt.min_ba_landmarks)
+        if info is not None:
+            local_ba["calls"] += 1
+            local_ba["iterations"] += info["iterations"]
         scene, n_merged3, n_new3 = triangulate_frame(
             scene, cur, fp_tbl[cur], 3, opt.max_repr_error, opt.min_tri_angle,
             max_observers=opt.max_observers)
@@ -947,13 +971,21 @@ def _finalize(scene: Scene, excluded, opt: SfmOptions, global_cfg: BAConfig, log
                               and fp_tbl is not None) else 0
     ba_info = None
     rounds = []
+
+    def global_ba(s):
+        with timer.span("ba.global") as sp:
+            s, info = _ba(s, s.pose_valid, global_cfg, opt.min_ba_landmarks,
+                          program_iters=opt.ba_program_iters, abs_anchors=abs_anchors,
+                          mesh=mesh)
+            if info is not None:
+                sp.add("iterations", info["iterations"])
+        return s, info
+
     if opt.run_global_ba and opt.global_max_iters > 0:
         if opt.prune_outliers:
             scene, n_obs, n_lm = prune_observations(scene, opt.max_repr_error)
             log(f"prune: -{int(n_obs)} observations, -{int(n_lm)} landmarks")
-        scene, info = _ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks,
-                          program_iters=opt.ba_program_iters, abs_anchors=abs_anchors,
-                          mesh=mesh)
+        scene, info = global_ba(scene)
         if info is not None:
             ba_info = {**_ba_record(info), "second": None}
             log(f"global BA: {ba_info['initial_cost']:.1f} -> {ba_info['final_cost']:.1f} "
@@ -965,9 +997,7 @@ def _finalize(scene: Scene, excluded, opt: SfmOptions, global_cfg: BAConfig, log
             _, _, (n_obs, total_obs) = sync_ranks(mesh, scene, None, int(n_obs), total_obs,
                                                   fields=())
             if n_obs >= max(8, total_obs // 1000):
-                scene, info2 = _ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks,
-                                   program_iters=opt.ba_program_iters,
-                                   abs_anchors=abs_anchors, mesh=mesh)
+                scene, info2 = global_ba(scene)
                 if info2 is not None:
                     ba_info["second"] = _ba_record(info2)
                     log(f"global BA 2 (post-prune -{n_obs} obs): "
@@ -986,9 +1016,7 @@ def _finalize(scene: Scene, excluded, opt: SfmOptions, global_cfg: BAConfig, log
             t_rebuild = time.perf_counter() - t
             t = time.perf_counter()
             scene, n_obs, _ = prune_observations(scene, opt.max_repr_error)
-            scene, info3 = _ba(scene, scene.pose_valid, global_cfg, opt.min_ba_landmarks,
-                               program_iters=opt.ba_program_iters, abs_anchors=abs_anchors,
-                               mesh=mesh)
+            scene, info3 = global_ba(scene)
             _sync(dev)
             rounds.append({"rebuilt_landmarks": rebuilt, "pruned_observations": int(n_obs),
                            "landmarks": int(scene.lm_valid.sum()), "ba": _ba_record(info3),

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from eacham_tpu_torch.ba.core import BAProblem
+from eacham_tpu_torch.utils import timer
 
 
 class Scene(NamedTuple):
@@ -134,6 +135,7 @@ def alloc_landmarks(scene: Scene, new_points: torch.Tensor, new_ok: torch.Tensor
     points = torch.cat([scene.points, scene.points.new_zeros((1, 3))])
     points[dst] = new_points.to(points.dtype)
     lm_valid = torch.cat([scene.lm_valid, scene.lm_valid.new_zeros(1)])
+    timer.add("readbacks")          # a host scalar written to the card waits for it
     lm_valid[dst] = True
     return scene._replace(
         points=points[:L],
@@ -266,6 +268,7 @@ def ba_problem_windowed(scene: Scene, cam_in_ba: torch.Tensor, max_cams: int = 1
         obs_uv = uv_window[pick]
 
     seen = torch.zeros(L + 1, dtype=torch.bool, device=dev)
+    timer.add("readbacks")          # a host scalar written to the card waits for it
     seen[torch.where(o_mask, obs_pt, L)] = True
     pt_in_ba = scene.lm_valid & (counts >= min_observers) & seen[:-1]
 

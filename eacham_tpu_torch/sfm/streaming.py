@@ -23,10 +23,17 @@ predecessors plus ``retrieval_k`` pooled-descriptor retrievals over the
 arrived frames before that window, and only those new pair rows are
 matched (one launch of the batched matcher a window, over the whole table
 with the unarrived rows masked) and written into the tables.
+
+``process`` and ``finalize`` are root spans of ``utils.timer``
+(``sfm.streaming.process`` / ``.finalize``, tagged with the
+reconstructor's ``stream`` number); a window's stages are the spans
+``sfm.streaming.process.extract``, ``.pairs`` (the pooled descriptors and
+the candidate pairs), ``.match``, ``.init`` and ``.resume``.
 """
 
 from __future__ import annotations
 
+import itertools
 from pathlib import Path
 
 import numpy as np
@@ -42,11 +49,14 @@ from eacham_tpu_torch.sfm.pipeline import (
 )
 from eacham_tpu_torch.sfm.scene import make_scene
 from eacham_tpu_torch.sfm.twoview import find_best_pair
+from eacham_tpu_torch.utils import timer
 
 
 class StreamingReconstructor:
     """Incremental SfM over an arriving frame stream, on ``device`` (the
     card by default; ``device="cpu"`` runs the plain versions)."""
+
+    _numbers = itertools.count()
 
     def __init__(
         self,
@@ -107,6 +117,7 @@ class StreamingReconstructor:
         self.finalize_every = max(1, int(finalize_every))
         self._windows_seen = 0
         self.device = dev
+        self.stream = next(self._numbers)     # the spans' tag
 
     # ---- internals --------------------------------------------------------
 
@@ -138,6 +149,10 @@ class StreamingReconstructor:
         Returns the run stats of the post-arrival registration sweep, with
         ``arrived`` and the window's ``new_pairs``.
         """
+        with timer.span("sfm.streaming.process", stream=self.stream):
+            return self._process(images, names, verbose)
+
+    def _process(self, images, names, verbose: bool) -> dict:
         dev = self.device
         m = int(images.shape[0])
         s = self.n_frames
@@ -150,85 +165,95 @@ class StreamingReconstructor:
             [f"frame_{s + i:05d}" for i in range(m)]
         )
 
-        xy, desc, _, mask = extract_features(images, max_keypoints=self.K, device=dev)
-        self.desc[s:s + m] = desc
-        pooled = (desc * mask[..., None]).sum(1)
-        pooled = pooled / torch.clamp(torch.linalg.vector_norm(pooled, dim=-1, keepdim=True),
-                                      min=1e-8)
-        self.pooled[s:s + m] = pooled.cpu().numpy()
-        self.n_frames = s + m
-
-        sc = self.scene
-        keypoints, kp_mask = sc.keypoints.clone(), sc.kp_mask.clone()
-        keypoints[s:s + m] = xy
-        kp_mask[s:s + m] = mask
-        sc = sc._replace(keypoints=keypoints, kp_mask=kp_mask)
+        with timer.span("sfm.streaming.process.extract"):
+            xy, desc, _, mask = extract_features(images, max_keypoints=self.K, device=dev)
+            self.desc[s:s + m] = desc
+            sc = self.scene
+            keypoints, kp_mask = sc.keypoints.clone(), sc.kp_mask.clone()
+            keypoints[s:s + m] = xy
+            kp_mask[s:s + m] = mask
+            sc = sc._replace(keypoints=keypoints, kp_mask=kp_mask)
+        with timer.span("sfm.streaming.process.pairs"):
+            pooled = (desc * mask[..., None]).sum(1)
+            pooled = pooled / torch.clamp(
+                torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-8)
+            self.pooled[s:s + m] = pooled.cpu().numpy()
+            self.n_frames = s + m
+            new_pairs = self._new_pairs(s, s + m)
 
         # --- match the new candidate pairs only ---------------------------
-        new_pairs = self._new_pairs(s, s + m)
         if new_pairs.shape[0]:
             c = self.pair_cursor
             if c + new_pairs.shape[0] > self.pair_capacity:
                 raise ValueError("pair capacity exceeded")
-            pairs = torch.as_tensor(new_pairs, device=dev)
-            mj, mv, ok = match_all_pairs(
-                self.desc, sc.kp_mask, pairs,
-                ratio=self.opt.match_ratio,
-                min_matches=self.opt.min_matches,
-                chunk=self.opt.match_chunk,
-            )
-            mv = mv & ok[:, None]
-            mji, mvi = invert_matches(mj, mv)
-            e = c + new_pairs.shape[0]
-            upd = {}
-            for name, rows in (("pair_idx", pairs), ("pair_ok", ok), ("match_ij", mj),
-                               ("valid_ij", mv), ("match_ji", mji), ("valid_ji", mvi)):
-                t = getattr(sc, name).clone()
-                t[c:e] = rows.to(t.dtype)
-                upd[name] = t
-            sc = sc._replace(**upd)
+            with timer.span("sfm.streaming.process.match"):
+                pairs = torch.as_tensor(new_pairs, device=dev)
+                mj, mv, ok = match_all_pairs(
+                    self.desc, sc.kp_mask, pairs,
+                    ratio=self.opt.match_ratio,
+                    min_matches=self.opt.min_matches,
+                    chunk=self.opt.match_chunk,
+                )
+                mv = mv & ok[:, None]
+                mji, mvi = invert_matches(mj, mv)
+                e = c + new_pairs.shape[0]
+                upd = {}
+                for name, rows in (("pair_idx", pairs), ("pair_ok", ok), ("match_ij", mj),
+                                   ("valid_ij", mv), ("match_ji", mji), ("valid_ji", mvi)):
+                    t = getattr(sc, name).clone()
+                    t[c:e] = rows.to(t.dtype)
+                    upd[name] = t
+                sc = sc._replace(**upd)
             self.pair_cursor = e
         self.scene = sc
 
         # --- initialize once, then sweep ----------------------------------
         if not self.initialized:
-            score_r = rank_init_pairs(self.scene, float(max(self.image_size))).cpu().numpy()
-            order = np.argsort(-score_r)
-            order = order[score_r[order] > 0]
-            if order.size:
-                generator = torch.Generator(device=dev).manual_seed(self.opt.seed)
-                pair_row, init = find_best_pair(
-                    generator, self.scene, order,
-                    min_initial_inliers=self.opt.min_initial_inliers,
-                    max_repr_error=self.opt.init_max_repr_error,
-                    min_tri_angle=self.opt.init_min_tri_angle,
-                    chunk=self.opt.init_chunk,
-                    n_hyp_e=self.opt.ransac_hyps_e,
-                    n_hyp_h=self.opt.ransac_hyps_h,
-                )
-                if pair_row is not None:
-                    self.scene = seed_initial_pair(
-                        self.scene, pair_row, init.T, init.points,
-                        init.point_ok)
-                    self.initialized = True
+            with timer.span("sfm.streaming.process.init"):
+                self._initialize()
         if not self.initialized:
             return {"initialized": False, "registered": 0,
                     "arrived": self.n_frames, "new_pairs": int(new_pairs.shape[0])}
 
         self._windows_seen += 1
         do_finalize = (self._windows_seen % self.finalize_every == 0)
-        self.scene, stats = resume_sfm(
-            self.scene, options=self.opt, verbose=verbose,
-            finalize=do_finalize, device=dev)
+        with timer.span("sfm.streaming.process.resume"):
+            self.scene, stats = resume_sfm(
+                self.scene, options=self.opt, verbose=verbose,
+                finalize=do_finalize, device=dev)
         stats.update(arrived=self.n_frames, new_pairs=int(new_pairs.shape[0]))
         return stats
+
+    def _initialize(self) -> None:
+        """Search the arrived frames for an initial pair and seed the map
+        from it if one passes."""
+        score_r = rank_init_pairs(self.scene, float(max(self.image_size))).cpu().numpy()
+        order = np.argsort(-score_r)
+        order = order[score_r[order] > 0]
+        if not order.size:
+            return
+        generator = torch.Generator(device=self.device).manual_seed(self.opt.seed)
+        pair_row, init = find_best_pair(
+            generator, self.scene, order,
+            min_initial_inliers=self.opt.min_initial_inliers,
+            max_repr_error=self.opt.init_max_repr_error,
+            min_tri_angle=self.opt.init_min_tri_angle,
+            chunk=self.opt.init_chunk,
+            n_hyp_e=self.opt.ransac_hyps_e,
+            n_hyp_h=self.opt.ransac_hyps_h,
+        )
+        if pair_row is not None:
+            self.scene = seed_initial_pair(
+                self.scene, pair_row, init.T, init.points, init.point_ok)
+            self.initialized = True
 
     @torch.no_grad()
     def finalize(self, verbose: bool = False) -> dict:
         """Run the full global-BA finalization on demand (stream end)."""
-        self.scene, stats = resume_sfm(
-            self.scene, options=self.opt, verbose=verbose, finalize=True,
-            device=self.device)
+        with timer.span("sfm.streaming.finalize", stream=self.stream):
+            self.scene, stats = resume_sfm(
+                self.scene, options=self.opt, verbose=verbose, finalize=True,
+                device=self.device)
         stats["arrived"] = self.n_frames
         return stats
 

@@ -17,11 +17,15 @@ more times with stage timings, the last of them under ``torch.profiler``.
 Prints the card, the steady-state stage seconds of every timed run, the
 device-busy share of the profiled run (device time summed over all
 kernels and copies, over its wall time), and the device time by kernel.
-With ``--full`` one more run times the sweep's and the finalization's
-building blocks (next-best-view, PnP, triangulation, window build, BA,
-pruning) under synchronized timers (calls, seconds, ms a call), and the
-profiled run's launches are also given per registered frame. Needs a CUDA
-card.
+The profiled run's split comes from the port's own spans
+(``eacham_tpu_torch.utils.timer``, recorded while the profiler runs): calls,
+seconds, self seconds, host waits for the card (the count ``readbacks``)
+and the sum of every other count (``registered``, ``pnp_failed``,
+``iterations``) of each span name, then the device's idle seconds by the
+innermost span open at each gap, on the profiler's clock (the span names
+the stage that kept the card waiting; "(no span)": between the program's
+calls). With ``--full`` the profiled run's launches are also given per
+registered frame. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -87,43 +91,104 @@ def deep_full_once(images, intr, dev, models):
                 total=time.perf_counter() - t0), stats
 
 
-def sweep_components(images, intr, dev, once=full_once):
-    """One more full run with the sweep's and the finalization's building
-    blocks wrapped in synchronized timers: {name: (calls, seconds)}. The
-    synchronizations stop the host from running ahead, so the sum is an
-    upper bound of what the blocks cost inside an untimed run."""
-    import torch
+def union(intervals) -> list:
+    """Merged, sorted [start, end] intervals of ``intervals``."""
+    merged = []
+    for a, b in sorted(intervals):
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    return merged
 
-    from eacham_tpu_torch.sfm import device_loop, pipeline
 
-    totals = {}
+def span_rows(recs: list) -> dict:
+    """Per name of the closed span records ``recs``: calls, seconds, self
+    seconds (a span's time less what its children cover) and the sum of
+    each count."""
+    from collections import Counter, defaultdict
 
-    def timed(name, fn):
-        def wrapper(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            calls, secs = totals.get(name, (0, 0.0))
-            totals[name] = (calls + 1, secs + time.perf_counter() - t0)
-            return out
-        return wrapper
+    closed = [i for i, r in enumerate(recs) if r["end_ns"] is not None]
+    kids = defaultdict(list)
+    for i in closed:
+        if recs[i]["parent"] is not None:
+            kids[recs[i]["parent"]].append((recs[i]["start_ns"], recs[i]["end_ns"]))
+    rows = {}
+    for i in closed:
+        r = recs[i]
+        t0, t1 = r["start_ns"], r["end_ns"]
+        covered = sum(max(0, min(b, t1) - max(a, t0)) for a, b in union(kids[i]))
+        row = rows.setdefault(r["name"], {"calls": 0, "seconds": 0.0, "self": 0.0,
+                                          "counts": Counter()})
+        row["calls"] += 1
+        row["seconds"] += (t1 - t0) / 1e9
+        row["self"] += (t1 - t0 - covered) / 1e9
+        row["counts"].update(r["counts"])
+    return rows
 
-    patched = [(device_loop, "next_best_view"), (device_loop, "pnp_register"),
-               (device_loop, "triangulate_frame"), (device_loop, "local_neighbors"),
-               (device_loop, "ba_problem_windowed"), (device_loop, "refine_ba"),
-               (pipeline, "prune_observations"), (pipeline, "ba_problem_windowed"),
-               (pipeline, "refine_ba_sharded")]
-    saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
-    try:
-        for mod, name, fn in saved:
-            where = "sweep" if mod is device_loop else "finalize"
-            setattr(mod, name, timed(f"{where}.{name}", fn))
-        secs, _ = once(images, intr, dev)
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    return totals, secs
+
+def idle_by_span(recs: list, busy: list, m0: int, m1: int) -> dict:
+    """Seconds of device idle time in [m0, m1] (ns on the profiler's clock)
+    by the name of the innermost closed span open at each gap's midpoint
+    (None: outside every span). ``busy``: the merged, sorted device
+    intervals."""
+    import bisect
+    from collections import defaultdict
+
+    gaps, prev = [], m0
+    for a, b in busy:
+        if a > prev:
+            gaps.append((prev, min(a, m1)))
+        prev = max(prev, b)
+    if m1 > prev:
+        gaps.append((prev, m1))
+    # the timeline cut where any span starts or ends, and the innermost span
+    # open over each piece
+    closed = [i for i, r in enumerate(recs) if r["end_ns"] is not None]
+    marks = sorted([(recs[i]["start_ns"], 1, i) for i in closed]
+                   + [(recs[i]["end_ns"], 0, i) for i in closed])
+    starts, inner, stack = [], [], []
+    for t, opens, i in marks:
+        if opens:
+            stack.append(i)
+        elif i in stack:
+            stack.remove(i)
+        starts.append(t)
+        inner.append(stack[-1] if stack else None)
+    out = defaultdict(float)
+    for a, b in gaps:
+        if b <= a:
+            continue
+        k = bisect.bisect_right(starts, (a + b) / 2) - 1
+        best = inner[k] if k >= 0 else None
+        out[None if best is None else recs[best]["name"]] += (b - a) / 1e9
+    return dict(out)
+
+
+def span_split(busy: list, m0: int, m1: int, card: str) -> None:
+    """Print the profiled run's spans by name, and the device's idle time in
+    [m0, m1] (``busy``: its merged busy intervals) by the innermost span
+    open at each gap."""
+    from eacham_tpu_torch.utils import timer
+
+    recs = timer.records()
+    print(f"spans of the profiled run on {card} (calls, seconds, self seconds, host "
+          "waits, other counts summed):", flush=True)
+    rows = span_rows(recs)
+    for name, row in sorted(rows.items(), key=lambda kv: -kv[1]["self"]):
+        counts = dict(row["counts"])
+        waits = counts.pop("readbacks", 0)
+        print(f"  {name:36s} {row['calls']:6d} {row['seconds']:9.4f} {row['self']:9.4f} "
+              f"{waits:7d}  " + " ".join(f"{k} {v}" for k, v in sorted(counts.items())),
+              flush=True)
+    idle = idle_by_span(recs, busy, m0, m1)
+    total = sum(idle.values())
+    named = total - idle.get(None, 0.0)
+    print(f"device idle by innermost span: {total:.4f} s of {(m1 - m0) / 1e9:.4f}, "
+          f"{100 * named / max(total, 1e-12):.2f}% under a named span:", flush=True)
+    for name, t in sorted(idle.items(), key=lambda kv: -kv[1]):
+        print(f"  {name or '(no span)':36s} {t:9.4f} {100 * t / max(total, 1e-12):6.2f}%",
+              flush=True)
 
 
 def deep_once(images, intr, dev, models):
@@ -149,6 +214,7 @@ def main():
 
     from chip_smoke import card_line, render_workload
     from eacham_tpu_torch.device import resolve_device
+    from eacham_tpu_torch.utils import timer
 
     dev = resolve_device("cuda")
     card = card_line()
@@ -169,31 +235,23 @@ def main():
         if r < args.runs - 1:
             secs, stats = once(images, intr, dev)
         else:
+            timer.clear()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                m0 = time.time_ns()          # the profiler's clock
                 secs, stats = once(images, intr, dev)
+                m1 = time.time_ns()
         print(f"run {r} (s){' under the profiler' if r == args.runs - 1 else ''} "
               f"on {card}: " + ", ".join(f"{k} {v:.4f}" for k, v in secs.items())
               + f"; init pair {stats['init_pair']}"
               + (f", registered {stats['registered']}, landmarks {stats['landmarks']}, "
                  f"global BA {stats['global_ba']}" if args.full else ""), flush=True)
 
-    if args.full:
-        totals, secs_c = sweep_components(images, intr, dev, once)
-        print(f"building blocks under synchronized timers on {card} (that run: sweep "
-              f"{secs_c['sweep']:.4f} s, finalize {secs_c['finalize']:.4f} s); calls, seconds, "
-              "ms a call:", flush=True)
-        for name, (calls, t) in sorted(totals.items(), key=lambda kv: -kv[1][1]):
-            print(f"  {name:32s} {calls:6d} {t:9.4f} {1e3 * t / calls:9.3f}", flush=True)
-
-    # kernels and copies only: an operator's device time repeats its kernels'
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in spans:                       # union of the device intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    busy_s = busy_us / 1e6
+    # kernels and copies only: an operator's device time repeats its kernels',
+    # and the device-side copies of the spans' annotations are no work
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()]
+    busy = union((e.start_ns(), e.start_ns() + e.duration_ns()) for e in kernels)
+    busy_s = sum(b - a for a, b in busy) / 1e9
     print(f"profiled run: wall {secs['total']:.4f} s, device busy {busy_s:.4f} s "
           f"({len(kernels)} kernels and copies), idle share "
           f"{1 - busy_s / secs['total']:.4f}"
@@ -201,11 +259,12 @@ def main():
              "frame" if args.full else ""), flush=True)
     by_name = {}
     for e in kernels:
-        t, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (t + e.time_range.elapsed_us(), n + 1)
+        t, n = by_name.get(e.name(), (0, 0))
+        by_name[e.name()] = (t + e.duration_ns(), n + 1)
     print(f"device time by kernel, top {args.top} (ms, launches):", flush=True)
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.top]:
-        print(f"  {t / 1e3:10.3f}  {n:6d}  {name[:110]}", flush=True)
+        print(f"  {t / 1e6:10.3f}  {n:6d}  {name[:110]}", flush=True)
+    span_split(busy, m0, m1, card)
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
