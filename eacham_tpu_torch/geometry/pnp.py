@@ -16,7 +16,6 @@ from eacham_tpu_torch.geometry.camera import pixel_to_normalized, project_hom
 from eacham_tpu_torch.geometry.linalg import orthonormalize_rotation, smallest_eigvec
 from eacham_tpu_torch.geometry.ransac import ransac, take_rows
 from eacham_tpu_torch.geometry.se3 import exp_se3, hat, rt_to_mat, transform_points
-from eacham_tpu_torch.utils import timer
 
 _EPS = 1e-12
 
@@ -110,8 +109,9 @@ def gauss_newton_pose(T0: torch.Tensor, pts3d: torch.Tensor, uv: torch.Tensor,
         r = project_hom(pc, intr) - uv                        # [..., N, 2]
         JtJ = torch.einsum("...nik,...nij->...kj", J * w, J)
         Jtr = torch.einsum("...nik,...ni->...k", J * w, r)
-        # torch.linalg.solve synchronizes the card with the host (its error check)
-        dx = -timer.readback(torch.linalg.solve, JtJ + damping * eye6, Jtr)
+        # solve_ex without its error check: the same LU solve as torch.linalg.solve,
+        # with no read of its info back to the host
+        dx = -torch.linalg.solve_ex(JtJ + damping * eye6, Jtr, check_errors=False).result
         T = exp_se3(dx) @ T
     return T
 
@@ -126,10 +126,13 @@ def solve_pnp_ransac(
     refine_iters: int = 10,
     generator: torch.Generator | None = None,
     sample_idx: torch.Tensor | None = None,   # [..., n_hyp, 6], overrides sampling
+    uniforms: torch.Tensor | None = None,     # [..., n_hyp, N], drawn in advance
 ):
     """Returns (T [..., 4, 4] world->cam, inliers [..., N] bool, n_inliers
     [...]). Leading axes are independent problems, solved in one batched
-    RANSAC (the loop-closing measurements take their edges this way)."""
+    RANSAC (the loop-closing measurements take their edges this way).
+    ``uniforms``: the sampler's draw (``ransac.draw_uniforms``) made by the
+    caller, which then leaves ``generator`` untouched here."""
     xy = pixel_to_normalized(uv, intr)
     batched = mask.dim() > 1
     # hypotheses get their own axis in front of the point axis
@@ -143,7 +146,7 @@ def solve_pnp_ransac(
         return _reproj_residual_px(T, pts_h, uv_h, intr)
 
     res = ransac(mask, solver, residual, threshold, n_hyp, 6,
-                 generator=generator, sample_idx=sample_idx)
+                 generator=generator, sample_idx=sample_idx, uniforms=uniforms)
     # polish on the inlier set, then recompute the inlier mask once
     T = gauss_newton_pose(res.model, pts3d, uv, intr, res.inliers.to(uv.dtype),
                           iters=refine_iters)

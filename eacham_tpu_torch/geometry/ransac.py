@@ -23,17 +23,26 @@ class RansacResult(NamedTuple):
     score: torch.Tensor       # [...] float32 MSAC score (lower is better)
 
 
+def draw_uniforms(generator: torch.Generator | None, batch: tuple, n_hyp: int, n: int,
+                  device) -> torch.Tensor:
+    """The iid uniforms [*batch, n_hyp, n] that ``masked_sample_indices``
+    draws for a mask [*batch, n]: one draw from ``generator``."""
+    return torch.rand(tuple(batch) + (n_hyp, n), generator=generator, device=device)
+
+
 def masked_sample_indices(generator: torch.Generator | None, mask: torch.Tensor,
-                          n_hyp: int, sample_size: int) -> torch.Tensor:
+                          n_hyp: int, sample_size: int,
+                          uniforms: torch.Tensor | None = None) -> torch.Tensor:
     """``n_hyp`` tuples of ``sample_size`` distinct indices of ``mask``-valid
     rows, per problem: [..., N] -> [..., n_hyp, sample_size].
 
-    Gumbel-top-k as in the reference: iid uniforms, invalid rows pushed to
-    -inf, top-k per hypothesis (no rejection loop).
+    Gumbel-top-k as in the reference: iid uniforms (``uniforms`` where
+    given, else drawn from ``generator``), invalid rows pushed to -inf, top-k
+    per hypothesis (no rejection loop).
     """
-    n = mask.shape[-1]
-    u = torch.rand(mask.shape[:-1] + (n_hyp, n), generator=generator,
-                   device=mask.device)
+    u = uniforms
+    if u is None:
+        u = draw_uniforms(generator, mask.shape[:-1], n_hyp, mask.shape[-1], mask.device)
     u = torch.where(mask[..., None, :], u, float("-inf"))
     return torch.topk(u, sample_size, dim=-1).indices
 
@@ -67,10 +76,11 @@ def ransac(
     sample_size: int,
     generator: torch.Generator | None = None,
     sample_idx: torch.Tensor | None = None,   # [..., H, S], overrides sampling
+    uniforms: torch.Tensor | None = None,     # [..., H, N], the sampler's draw
 ) -> RansacResult:
     """Generic batched MSAC; invalid data never count as inliers."""
     if sample_idx is None:
-        sample_idx = masked_sample_indices(generator, data_mask, n_hyp, sample_size)
+        sample_idx = masked_sample_indices(generator, data_mask, n_hyp, sample_size, uniforms)
     models = solver(sample_idx.long())
     r = residual(models)
     r2 = r * r

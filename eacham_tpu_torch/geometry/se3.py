@@ -9,8 +9,6 @@ from __future__ import annotations
 
 import torch
 
-from eacham_tpu_torch.utils import timer
-
 
 def hat(w: torch.Tensor) -> torch.Tensor:
     """Skew-symmetric matrix [w]_x of a (..., 3) axis vector -> (..., 3, 3)."""
@@ -83,9 +81,8 @@ def log_se3(T: torch.Tensor) -> torch.Tensor:
 
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) + (..., 3) -> (..., 4, 4) homogeneous transform."""
-    bottom = timer.readback(torch.tensor, [0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                            device=R.device)     # uploaded from pageable memory: waits
-    bottom = bottom.expand(R.shape[:-2] + (1, 4))
+    # made on the card (an uploaded constant row would wait for it)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(R.shape[:-2] + (1, 4))
     top = torch.cat([R, t[..., None]], dim=-1)
     return torch.cat([top, bottom], dim=-2)
 

@@ -62,8 +62,8 @@ from eacham_tpu_torch.sfm.posegraph import (
     rebuild_map,
 )
 from eacham_tpu_torch.sfm.scene import (
-    Scene, alloc_landmarks, ba_problem_counts, ba_problem_windowed,
-    frame_pair_table, make_scene, scatter_window_points, scatter_window_poses,
+    Scene, alloc_landmarks, ba_problem_counts, ba_problem_windowed, frame_pair_table,
+    frame_row, make_scene, scatter_window_points, scatter_window_poses,
 )
 from eacham_tpu_torch.sfm.submap import submap_align
 from eacham_tpu_torch.sfm.triangulate import first_true, triangulate_frame
@@ -241,16 +241,20 @@ def next_best_view(scene: Scene, excluded: torch.Tensor):
 @torch.no_grad()
 def pnp_register(scene: Scene, prev, cur, pair_rows: torch.Tensor,
                  generator: torch.Generator | None = None, threshold: float = 4.0,
-                 n_hyp: int = 512, pair_only: bool = False, sample_idx=None):
-    """Gather 3D-2D correspondences for the new frame ``cur`` (an int, as
-    ``prev``) from its registered neighbours ``pair_rows`` = frame_pair_table[cur] and solve
+                 n_hyp: int = 512, pair_only: bool = False, sample_idx=None,
+                 uniforms=None):
+    """Gather 3D-2D correspondences for the new frame ``cur`` (an int, or a
+    one-element index tensor on the scene's device; as ``prev``) from its
+    registered neighbours ``pair_rows`` = frame_pair_table[cur] and solve
     PnP. Returns (T [4, 4], n_inliers); the caller applies the min-inlier
-    gate."""
+    gate. ``uniforms``: the RANSAC sampler's draw made by the caller
+    (``ransac.draw_uniforms``: [n_hyp, K]) in place of one from
+    ``generator``."""
     K = scene.kp_mask.shape[1]
     obs_frame, obs_kp, obs_on = observers_of_frame(
         cur, pair_rows, scene.pair_idx, scene.pair_ok,
         scene.match_ij, scene.valid_ij, scene.match_ji, scene.valid_ji)   # [D], [D, K]
-    obs_on = obs_on & scene.pose_valid[obs_frame][:, None] & scene.kp_mask[cur][None, :]
+    obs_on = obs_on & scene.pose_valid[obs_frame][:, None] & frame_row(scene.kp_mask, cur)[None, :]
     if pair_only:
         obs_on = obs_on & (obs_frame[:, None] == prev)
     nb_lm = scene.kp2lm[obs_frame[:, None], obs_kp].long()
@@ -258,8 +262,9 @@ def pnp_register(scene: Scene, prev, cur, pair_rows: torch.Tensor,
     src, ok = first_true(has, 0)              # first neighbour with a landmark
     lm_id = torch.clamp(nb_lm, min=0)[src, torch.arange(K, device=src.device)]
     T, _, n_inl = solve_pnp_ransac(
-        scene.points[lm_id], scene.keypoints[cur], ok, scene.intr, threshold=threshold,
-        n_hyp=n_hyp, generator=generator, sample_idx=sample_idx)
+        scene.points[lm_id], frame_row(scene.keypoints, cur), ok, scene.intr,
+        threshold=threshold, n_hyp=n_hyp, generator=generator, sample_idx=sample_idx,
+        uniforms=uniforms)
     return T, n_inl
 
 
@@ -365,14 +370,13 @@ def _ba(scene: Scene, cam_in_ba, cfg: BAConfig, min_landmarks: int,
     return scene._replace(intr=intr), info
 
 
-def set_pose(scene: Scene, frame: int, T: torch.Tensor) -> Scene:
-    """The scene with ``frame`` registered at pose ``T``."""
-    pose = scene.pose.clone()
-    pose[frame] = T
-    pose_valid = scene.pose_valid.clone()
-    timer.add("readbacks")          # a host scalar written to the card waits for it
-    pose_valid[frame] = True
-    return scene._replace(pose=pose, pose_valid=pose_valid)
+def set_pose(scene: Scene, frame, T: torch.Tensor) -> Scene:
+    """The scene with ``frame`` (an int, or an index tensor on the scene's
+    device) registered at pose ``T``: selections by a mask made on the card,
+    with no host value written to it."""
+    on = torch.arange(scene.pose.shape[0], device=scene.pose.device) == frame
+    return scene._replace(pose=torch.where(on[:, None, None], T, scene.pose),
+                          pose_valid=scene.pose_valid | on)
 
 
 @torch.no_grad()

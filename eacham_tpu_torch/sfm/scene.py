@@ -118,6 +118,15 @@ def frame_pair_table(pair_idx: np.ndarray, n_frames: int,
     return tbl
 
 
+def frame_row(x: torch.Tensor, frame) -> torch.Tensor:
+    """``x[frame]`` for an int ``frame``, or for a one-element int64 tensor
+    on ``x``'s device, which indexes with nothing read back to the host (a
+    0-d device index is read back first)."""
+    if isinstance(frame, torch.Tensor):
+        return x[frame.reshape(1)][0]
+    return x[frame]
+
+
 def alloc_landmarks(scene: Scene, new_points: torch.Tensor, new_ok: torch.Tensor):
     """Allocate landmark slots for ``new_ok`` rows of ``new_points``, ids
     handed out compactly from the allocation counter.
@@ -135,8 +144,7 @@ def alloc_landmarks(scene: Scene, new_points: torch.Tensor, new_ok: torch.Tensor
     points = torch.cat([scene.points, scene.points.new_zeros((1, 3))])
     points[dst] = new_points.to(points.dtype)
     lm_valid = torch.cat([scene.lm_valid, scene.lm_valid.new_zeros(1)])
-    timer.add("readbacks")          # a host scalar written to the card waits for it
-    lm_valid[dst] = True
+    lm_valid.index_fill_(0, dst, True)      # the value is the kernel's argument: no upload
     return scene._replace(
         points=points[:L],
         lm_valid=lm_valid[:L],

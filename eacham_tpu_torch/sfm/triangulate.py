@@ -25,7 +25,7 @@ import torch
 from eacham_tpu_torch.geometry.camera import project
 from eacham_tpu_torch.geometry.triangulation import triangulate_consensus
 from eacham_tpu_torch.sfm.matches import observers_of_frame
-from eacham_tpu_torch.sfm.scene import Scene, alloc_landmarks, lm_observer_counts
+from eacham_tpu_torch.sfm.scene import Scene, alloc_landmarks, frame_row, lm_observer_counts
 
 
 def first_true(mask: torch.Tensor, dim: int):
@@ -67,18 +67,20 @@ def scatter_last_wins(dst: torch.Tensor, target: torch.Tensor, value: torch.Tens
 @torch.no_grad()
 def triangulate_frame(scene: Scene, frame: int, pair_rows: torch.Tensor, min_observers: int,
                       max_repr_error: float, min_tri_angle: float, max_observers: int = 12):
-    """Triangulate the tracks of ``frame`` against its registered neighbours
+    """Triangulate the tracks of ``frame`` (an int, or a one-element index
+    tensor on the scene's device) against its registered neighbours
     ``pair_rows`` = frame_pair_table[frame].
     Returns ``(scene, n_merged, n_new)``, the counts as 0-d tensors."""
     N, K = scene.kp_mask.shape
     D = pair_rows.shape[0]
     dev = scene.kp_mask.device
-    frame = int(frame)
+    if not isinstance(frame, torch.Tensor):
+        frame = int(frame)
 
     obs_frame, obs_kp, obs_on = observers_of_frame(
         frame, pair_rows, scene.pair_idx, scene.pair_ok,
         scene.match_ij, scene.valid_ij, scene.match_ji, scene.valid_ji)   # [D], [D, K]
-    kp_live = scene.kp_mask[frame]
+    kp_live = frame_row(scene.kp_mask, frame)
     obs_on = obs_on & scene.pose_valid[obs_frame][:, None] & kp_live[None, :]
 
     # ---- merge into existing landmarks ----------------------------------------
@@ -86,8 +88,9 @@ def triangulate_frame(scene: Scene, frame: int, pair_rows: torch.Tensor, min_obs
     nb_lm = scene.kp2lm[obs_frame[:, None], obs_kp].long()     # [D, K]
     nb_lm_safe = torch.clamp(nb_lm, min=0)
     cand = obs_on & (nb_lm >= 0) & scene.lm_valid[nb_lm_safe] & (counts[nb_lm_safe] > 2)
-    uv_proj, z = project(scene.pose[frame], scene.points[nb_lm_safe], scene.intr)
-    err = torch.linalg.vector_norm(uv_proj - scene.keypoints[frame][None, :, :], dim=-1)
+    uv_proj, z = project(frame_row(scene.pose, frame), scene.points[nb_lm_safe], scene.intr)
+    err = torch.linalg.vector_norm(uv_proj - frame_row(scene.keypoints, frame)[None, :, :],
+                                   dim=-1)
     cand = cand & (z > 0.0) & (err < max_repr_error)
     # neighbour slots are in ascending frame order: the first one that qualifies wins
     merge_src, merge_ok = first_true(cand, 0)             # [K]
@@ -98,7 +101,9 @@ def triangulate_frame(scene: Scene, frame: int, pair_rows: torch.Tensor, min_obs
     # the new frame itself observes the track (last slot)
     track_on = torch.cat([obs_on.t(), kp_live[:, None]], dim=1)                 # [K, D+1]
     track_kp = torch.cat([obs_kp.t(), self_col[:, None]], dim=1)
-    track_frame = torch.cat([obs_frame, obs_frame.new_full((1,), frame)])[None, :].expand(K, D + 1)
+    own = (frame.reshape(1).to(obs_frame.dtype) if isinstance(frame, torch.Tensor)
+           else obs_frame.new_full((1,), frame))
+    track_frame = torch.cat([obs_frame, own])[None, :].expand(K, D + 1)
     candidate = (~merge_ok) & (track_on.sum(1) >= min_observers)
 
     # cap the observers of a track, earlier frames first
