@@ -5,5 +5,8 @@
 Everything that belongs to one configuration, one traffic mix or one
 per-layer metric is a file of its own, found by name:
 ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``metrics/<metric>.py``, ``inputs/<kind>.py`` and ``limits/<workload>.json``.
+``metrics/<metric>.py``, ``inputs/<kind>.py``, ``limits/<workload>.json``, and
+for a configuration's ``frontend.kind`` the program's side
+``frontends/<kind>.py`` and the plain reference's
+``reference/frontends/<kind>.py``.
 """

@@ -70,7 +70,7 @@ def readings(workload: str, seeds: list[int], device=None, here: Path | None = N
     truth = {"images": inputs.get("images"), "poses": inputs["poses"], "intr": inputs["intr"]}
     rows = []
     for i, seed in enumerate(seeds):
-        prog = Program(c["config"], t, inputs, seed, dev)
+        prog = Program(c["config"], t, inputs, seed, dev, c["frontend"])
         if i == 0:
             prog.build()
             (prog.warmup_closed if t["mode"] == "closed" else prog.warmup_open)()

@@ -1,10 +1,12 @@
-"""The system under test, driven as its users drive it: the only module of
-the benchmark that imports the program (``eacham_tpu_torch``).
+"""The system under test, driven as its users drive it: with the frontend
+kinds (``frontends/<kind>.py``), the only modules of the benchmark that
+import the program (``eacham_tpu_torch``).
 
-A configuration's entry follows from its inputs: images go through
-``features.frontend.extract_features`` and then ``sfm.pipeline.run_sfm``
-(or, in an open loop, ``sfm.streaming.StreamingReconstructor``); tracks go
-straight into ``run_sfm``.
+A configuration's entry follows from its inputs: images go through its
+frontend kind's ``extract``, then the kind's ``match_tables`` (None: run_sfm
+builds its own graph) and ``sfm.pipeline.run_sfm`` (or, in an open loop,
+``sfm.streaming.StreamingReconstructor``); tracks go straight into
+``run_sfm``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from sfmbench.devtrace import Session
 from sfmbench.harness import request_seed
 
 WARMUP_SEED = 2 ** 31        # the warm-up's RANSAC seeds: request indices no window uses
+RUN_SFM_KERNELS = ["match_pairs"]   # run_sfm's own match graph, which tracks go through
 
 
 def sync(dev: torch.device) -> None:
@@ -25,10 +28,12 @@ def sync(dev: torch.device) -> None:
 
 
 class Program:
-    """One configuration's inputs on the device and its entry points."""
+    """One configuration's inputs on the device and its entry points.
+    ``frontend``: the configuration's frontend kind (``harness.cell``'s
+    ``frontend``; None for tracks)."""
 
     def __init__(self, config: dict, traffic: dict, inputs: dict, seed: int,
-                 dev: torch.device):
+                 dev: torch.device, frontend):
         from eacham_tpu_torch.sfm.pipeline import SfmOptions
 
         self.config, self.traffic, self.dev, self.seed = config, traffic, dev, seed
@@ -42,50 +47,58 @@ class Program:
                              for k in ("keypoints", "descriptors", "mask"))
                        if "keypoints" in inputs else None)
         self.frames = (self.images if self.images is not None else self.tracks[0]).shape[0]
+        self.frontend = frontend
+        self.frontend_state = frontend.setup(self) if frontend is not None else None
 
     def build(self) -> dict:
         """The kernels of the path, built (or found built) up front."""
         from eacham_tpu_torch.ops import build
 
-        return build.build(["match_pairs"]) if self.dev.type == "cuda" else {}
+        if self.dev.type != "cuda":
+            return {}
+        return build.build(self.frontend.kernels(self.config) if self.frontend is not None
+                           else RUN_SFM_KERNELS)
 
     # ---- the closed loop ---------------------------------------------------------
 
-    def extract(self, images):
-        from eacham_tpu_torch.features.frontend import extract_features
-
-        fe = self.config["frontend"]
-        xy, desc, _, mask = extract_features(
-            images, max_keypoints=fe["max_keypoints"],
-            contrast_threshold=fe["contrast_threshold"], device=self.dev)
-        return xy, desc, mask
-
     def reconstruct(self, k: int, frames: int | None = None, profile: bool = False) -> dict:
         """One whole request: the features (extracted, or the tracks) of the
-        first ``frames`` frames, then ``run_sfm`` with RANSAC seed (seed, k)."""
+        first ``frames`` frames, the kind's match tables where it builds them
+        (``tables_s``; None where run_sfm builds its own), then ``run_sfm``
+        with RANSAC seed (seed, k)."""
         from eacham_tpu_torch.sfm.pipeline import run_sfm
 
         n = frames or self.frames
         opts = self.SfmOptions(seed=request_seed(self.seed, k), **self.options)
+        # run_sfm's own generator (seeded from opts.seed), shared with the kind's tables
+        gen = torch.Generator(device=self.dev).manual_seed(opts.seed)
         session = Session(self.dev) if profile else None
         sync(self.dev)
         if session:
             session.start()
         t0 = time.perf_counter()
         if self.images is not None:
-            xy, desc, mask = self.extract(self.images[:n])
+            xy, desc, mask = self.frontend.extract(self, self.images[:n])
             sync(self.dev)
         else:
             xy, desc, mask = (t[:n] for t in self.tracks)
         t1 = time.perf_counter()
+        tables = None
+        if self.frontend is not None:
+            tables = self.frontend.match_tables(self, xy, desc, mask, opts, gen)
+            if tables is not None:
+                sync(self.dev)
+        t_tables = time.perf_counter()
         scene, stats = run_sfm(xy, desc, mask, image_size=self.size, intr=self.intr,
-                               options=opts, device=self.dev)
+                               options=opts, match_tables=tables, generator=gen,
+                               device=self.dev)
         sync(self.dev)
         t2 = time.perf_counter()
         if session:
             session.stop()
         return {"k": k, "frames": n, "registered": stats["registered"],
                 "extract_s": t1 - t0 if self.images is not None else None,
+                "tables_s": t_tables - t1 if tables is not None else None,
                 "total_s": t2 - t0, "seconds": dict(stats["seconds"]),
                 "profiled": profile,
                 "trace": session.trace if session else None,

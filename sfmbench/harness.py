@@ -1,8 +1,9 @@
 """Discovery of a cell's files, the inputs, and the two traffic loops.
 
-Nothing here knows a configuration, a traffic mix or a metric by name:
-``BENCHMARK.json`` names them and the files are found under this folder
-(``configs/``, ``traffic/``, ``metrics/``, ``inputs/``, ``limits/``).
+Nothing here knows a configuration, a traffic mix, a frontend kind or a
+metric by name: ``BENCHMARK.json`` and the configuration name them and the
+files are found under this folder (``configs/``, ``traffic/``, ``metrics/``,
+``inputs/``, ``frontends/``, ``reference/frontends/``, ``limits/``).
 """
 
 from __future__ import annotations
@@ -40,7 +41,10 @@ def load_module(path: Path, name: str):
 def cell(workload: str, bench_path: Path | None = None, here: Path = HERE) -> dict:
     """Everything one run of ``workload`` needs, read from BENCHMARK.json and
     this folder: the entry, its configuration and traffic files, the
-    metrics it reports with their readers, and its limits."""
+    configuration's frontend kind (``frontends/<kind>.py``, the program's
+    side, and ``reference/frontends/<kind>.py``, the judge's; both None for
+    a configuration without a frontend), the metrics it reports with their
+    readers, and its limits."""
     bench = load_json(bench_path or (here.parent / "BENCHMARK.json"))
     rows = [w for w in bench["workloads"] if w["name"] == workload]
     if not rows:
@@ -51,6 +55,10 @@ def cell(workload: str, bench_path: Path | None = None, here: Path = HERE) -> di
         raise CellError(f"no configuration {w['config']!r} in BENCHMARK.json")
     config = load_json(here.parent / conf_rows[0]["file"])
     traffic = load_json(here / "traffic" / f"{w['traffic']}.json")
+    frontend, reference = frontend_kind(config, here)
+    if traffic["mode"] == "open" and not getattr(frontend, "STREAMS", False):
+        raise CellError(f"configuration {w['config']!r}: its frontend does not stream, "
+                        f"and traffic {w['traffic']!r} is an open loop")
 
     def applies(m):
         return "workloads" not in m or workload in m["workloads"]
@@ -65,7 +73,21 @@ def cell(workload: str, bench_path: Path | None = None, here: Path = HERE) -> di
         limits.update(stated_limits(config))
     return {"workload": w, "config": config, "traffic": traffic, "end_to_end": e2e,
             "per_layer": layer, "readers": readers, "limits": limits,
-            "run_seconds": bench["run_seconds"]}
+            "run_seconds": bench["run_seconds"], "frontend": frontend,
+            "reference": reference}
+
+
+def frontend_kind(config: dict, here: Path = HERE):
+    """The configuration's frontend kind as (the program's module
+    ``frontends/<kind>.py``, the reference's ``reference/frontends/<kind>.py``);
+    (None, None) where the configuration has no frontend."""
+    fe = config.get("frontend")
+    if fe is None:
+        return None, None
+    kind = fe["kind"]
+    return (load_module(here / "frontends" / f"{kind}.py", f"frontends.{kind}"),
+            load_module(here / "reference" / "frontends" / f"{kind}.py",
+                        f"reference.frontends.{kind}"))
 
 
 def stated_limits(config: dict) -> dict:
@@ -77,17 +99,26 @@ def stated_limits(config: dict) -> dict:
 
 def check_spec(c: dict) -> dict:
     """What the judge needs of a cell (``cell``'s result): the
-    configuration's ``check`` settings, its frontend, and the candidate
-    pairs the cell states: the stream's window and retrievals, or the
-    closed loop's exhaustive pairs (``pair_window`` 0, run_sfm's default)."""
+    configuration's ``check`` settings, its frontend and the kind's
+    reference module, and the candidate pairs the cell states: the stream's
+    window and retrievals; in the closed loop, the rule the frontend block
+    states (``frontend.pairs``: ``window``, ``retrieval_k``, ``ladder``, the
+    arguments of ``sfm.matches.candidate_pairs``, whose retrieval looks to
+    both sides of a frame), or else the exhaustive pairs (``pair_window`` 0,
+    run_sfm's default)."""
     config, t = c["config"], c["traffic"]
+    stated = (config.get("frontend") or {}).get("pairs")
     if t["mode"] == "open":
         pairs = {"window": t["window"], "retrieval_k": t["retrieval_k"]}
+    elif stated is not None:
+        pairs = {"window": stated["window"], "retrieval_k": stated["retrieval_k"],
+                 "ladder": stated["ladder"], "symmetric": True}
     elif config["options"].get("pair_window", 0) == 0:
         pairs = {"window": 0, "retrieval_k": 0}
     else:
         raise CellError("the judge states no candidate pairs for run_sfm's pair_window")
-    return dict(config["check"], frontend=config.get("frontend"), pairs=pairs)
+    return dict(config["check"], frontend=config.get("frontend"), reference=c["reference"],
+                pairs=pairs)
 
 
 def make_inputs(config: dict, here: Path = HERE) -> dict:

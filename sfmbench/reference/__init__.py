@@ -8,5 +8,7 @@ importing nothing of the program (nor JAX).
 - ``geometry``: similarity-aligned trajectory error, epipolar distances
   under the ground truth, and a block-wise Gauss-Newton refinement that
   tells how far a bundle-adjusted map lies from its optimum.
+- ``frontends``: one module a frontend kind, the frontend's numbers and the
+  reference matcher of that kind (``frontends/dog.py``: the two above).
 - ``judge``: the numbers compared, from a request's inputs and outputs.
 """

@@ -10,14 +10,21 @@ program from there (the matches are re-derived from the program's
 descriptors, the poses' optimum from the program's map) and the earlier
 stage is judged on its own.
 
+The frontend's numbers and the reference matcher belong to the
+configuration's frontend kind (``spec["reference"]``, a module of
+``reference/frontends/``); a configuration without a frontend (tracks) is
+matched by ``run_sfm``'s own rule (``matcher.reference_matches``). The
+pairs, the map and the trajectory are judged alike for every kind.
+
 ``control`` (the configuration's ``control``: a setting a stage) puts the
 reference in the program's place at each stage it names, one precision
 below the one the configuration states or with one of its stated
-guarantees broken, and judges that instead: ``frontend: "tf32"`` (TF32
-convolutions), ``matcher: "fp8"`` (fp8 descriptors) or ``"no_ratio"`` (no
-ratio test), ``poses: "tf32"`` (the refined poses stored at TF32
-precision), ``points: "tf32"`` (the refined landmarks stored at TF32
-precision).
+guarantees broken, and judges that instead: ``frontend`` and ``matcher``
+as the kind's reference module reads them (the DoG kind: ``frontend:
+"tf32"``, TF32 convolutions; ``matcher: "fp8"``, fp8 descriptors, or
+``"no_ratio"``, no ratio test), ``poses: "tf32"`` (the refined poses stored
+at TF32 precision), ``points: "tf32"`` (the refined landmarks stored at
+TF32 precision).
 """
 
 from __future__ import annotations
@@ -44,18 +51,14 @@ def _pair_keypoints(a, b):
     return ia[ok], nb[ok], d[ia[ok], nb[ok]]
 
 
-def judge_frontend(images, xy, desc, mask, frames, max_kps, contrast, control=None):
-    """Keypoints and descriptors of ``frames`` against the float64 reference.
-    Returns kp_unpaired (share of both sides' keypoints left unpaired),
-    kp_gap_px and desc_gap (99th percentiles over the paired keypoints)."""
-    imgs = images[frames]
-    rxy, rdesc, rlive = frontend.extract(imgs, max_kps, contrast)
-    if control == "tf32":
-        xy, desc, mask = frontend.extract(imgs, max_kps, contrast, torch.float32, tf32=True)
-    else:
-        xy, desc, mask = xy[frames], desc[frames], mask[frames]
+def compare_features(xy, desc, mask, rxy, rdesc, rlive) -> dict:
+    """Features of the same frames, [F, K, 2] keypoints, [F, K, D]
+    descriptors and [F, K] masks, against the reference's (``rxy``,
+    ``rdesc``, ``rlive``). Returns kp_unpaired (share of both sides'
+    keypoints left unpaired), kp_gap_px and desc_gap (99th percentiles over
+    the paired keypoints)."""
     unpaired, total, gaps, dgaps = 0, 0, [], []
-    for f in range(len(frames)):
+    for f in range(len(rxy)):
         a = xy[f][mask[f]].double()
         b = rxy[f][rlive[f]]
         ia, ib, dist = _pair_keypoints(a, b)
@@ -73,12 +76,29 @@ def judge_frontend(images, xy, desc, mask, frames, max_kps, contrast, control=No
             "desc_gap": p99(dgaps)}
 
 
-def stated_pairs(n: int, window: int, retrieval_k: int):
+def ladder_offsets(n: int, window: int) -> list[int]:
+    """The ladder's offsets over ``n`` frames, as ``sfm.matches.candidate_pairs``
+    steps them: 2 * window, 4 * window, ... while below ``n``."""
+    offs, off = [], 2 * window
+    while window > 0 and off < n:
+        offs.append(off)
+        off *= 2
+    return offs
+
+
+def stated_pairs(n: int, window: int, retrieval_k: int, ladder: bool = False,
+                 symmetric: bool = False):
     """The candidate pairs the cell states over ``n`` frames: every i < j
     where ``window`` is 0 (exhaustive matching); otherwise each frame j
-    paired with its ``window`` predecessors, plus ``retrieval_k`` pairs
-    (t, j) with t < j - window, which the program picks by retrieval.
-    Returns (the stated pairs [S, 2], the retrieval slots each frame j has)."""
+    paired with its ``window`` predecessors, with ``ladder`` the pairs
+    (i, i + d) for d in ``ladder_offsets`` (stated exactly), plus the pairs
+    the program picks by retrieval, stated as a count of slots a frame:
+    ``retrieval_k`` pairs (t, j) with t < j - window for each frame j (the
+    stream's rule), or, ``symmetric``, ``retrieval_k`` pairs (a, b) with
+    |a - b| > window, on either side of each frame a
+    (``sfm.matches.candidate_pairs``' rule), as many as there are such
+    frames. Returns (the stated pairs [S, 2], the retrieval slots of each
+    frame [n])."""
     j = torch.arange(n)
     if window == 0:
         i, jj = torch.triu_indices(n, n, 1)
@@ -87,46 +107,65 @@ def stated_pairs(n: int, window: int, retrieval_k: int):
     i = j[:, None] - d[None, :]
     keep = i >= 0
     pairs = torch.stack([i[keep], j[:, None].expand_as(i)[keep]], 1)
-    slots = (j - window).clamp(min=0).clamp(max=retrieval_k)
+    if ladder:
+        rungs = [torch.stack([torch.arange(n - off), torch.arange(off, n)], 1)
+                 for off in ladder_offsets(n, window)]
+        pairs = torch.cat([pairs, *rungs])
+    before = (j - window).clamp(min=0)
+    if symmetric:
+        slots = (before + (n - 1 - window - j).clamp(min=0)).clamp(max=retrieval_k)
+    else:
+        slots = before.clamp(max=retrieval_k)
     return pairs, slots
 
 
-def judge_pairs(pair_idx, n: int, window: int, retrieval_k: int) -> dict:
+def judge_pairs(pair_idx, n: int, window: int, retrieval_k: int, ladder: bool = False,
+                symmetric: bool = False) -> dict:
     """pairs_missing: share of the stated candidate pairs (``stated_pairs``)
     that the program's pair list lacks, a retrieval slot left unfilled
-    counting as one."""
+    counting as one. A slot is filled by a pair of the program's list wider
+    than ``window``: the stream's by one ending at the frame, a
+    ``symmetric`` rule's by one at either end; a ladder pair (with
+    ``ladder``) fills none.
+
+    Where ``candidate_pairs`` picks a ladder pair by retrieval too, it keeps
+    the one pair, and this rule reads that slot as empty unless another
+    pair of the frame fills it: a world whose most similar frames beyond the
+    window lie at a ladder offset reads above 0 on a sound program. In a
+    sequence whose frames grow less alike with distance, a frame's picks
+    reach the first offset (2 * window) only where fewer than
+    ``retrieval_k`` frames lie nearer beyond the window on its sides;
+    elsewhere only a revisit at an offset's distance does."""
     real = pair_idx[:, 0] < pair_idx[:, 1]
     have = pair_idx[real].long().cpu()
-    want, slots = stated_pairs(n, window, retrieval_k)
+    want, slots = stated_pairs(n, window, retrieval_k, ladder, symmetric)
     key = have[:, 0] * n + have[:, 1]
     lacking = int((~torch.isin(want[:, 0] * n + want[:, 1], key)).sum())
     if retrieval_k:
-        far = have[:, 1] - have[:, 0] > window
+        gap = have[:, 1] - have[:, 0]
+        far = gap > window
+        if ladder:
+            far &= ~torch.isin(gap, torch.tensor(ladder_offsets(n, window), dtype=torch.long))
+        ends = torch.cat([have[far, 0], have[far, 1]]) if symmetric else have[far, 1]
         got = torch.zeros(n, dtype=torch.long).index_add_(
-            0, have[far, 1], torch.ones(int(far.sum()), dtype=torch.long))
+            0, ends, torch.ones(len(ends), dtype=torch.long))
         lacking += int((slots - got).clamp(min=0).sum())
     return {"pairs_missing": lacking / max(len(want) + int(slots.sum()), 1)}
 
 
-def judge_matches(kps, desc, mask, pair_idx, match_ij, valid_ij, poses_gt, intr,
-                  ratio, min_matches, consistent_px, epi_px, control=None):
-    """The verified match graph against the reference matcher on the
-    program's descriptors and against the true epipolar geometry, on the
-    program's pairs (``judge_pairs`` holds the pairs to the stated ones).
+def judge_matches(kps, pairs, pm, pv, rj, rv, poses_gt, intr, min_matches,
+                  consistent_px, epi_px):
+    """The verified match graph against the reference matcher's matches
+    (``rj``, ``rv``: [P, K], on the program's real pairs [P, 2]) and against
+    the true epipolar geometry; ``pm``, ``pv``: the program's matches on
+    those pairs, or the control's in their place (``judge_pairs`` holds the
+    pairs to the stated ones).
 
     match_extra: share of the program's matches that are not the reference's.
     match_missing: share of the reference's matches that the truth bears out
     (Sampson distance under ``consistent_px``), on pairs holding more than
     twice ``min_matches`` of them, that the program lacks. epi_bad: share of
     the program's matches farther than ``epi_px`` from the true epipolar line."""
-    real = pair_idx[:, 0] < pair_idx[:, 1]
-    pairs = pair_idx[real].long()
-    pm, pv = match_ij[real].long(), valid_ij[real].bool()
-    rj, rv = matcher.match_pairs(desc, mask, pairs, ratio, "bf16")
-    if control == "fp8":
-        pm, pv = matcher.match_pairs(desc, mask, pairs, ratio, "fp8")
-    elif control == "no_ratio":
-        pm, pv = matcher.match_pairs(desc, mask, pairs, None, "bf16")
     T = torch.as_tensor(poses_gt, dtype=torch.float64, device=kps.device)
     kps = kps.double()
     Ti, Tj = T[pairs[:, 0]], T[pairs[:, 1]]
@@ -202,7 +241,7 @@ def judge_request(out: dict, truth: dict, spec: dict, rng: np.random.Generator,
                   control: dict | None = None) -> dict:
     """Every number of one request. ``out``: the program's features (xy,
     desc, mask) and scene fields; ``truth``: images (or None), poses, intr;
-    ``spec``: the configuration's check settings; ``control``: see above."""
+    ``spec``: ``harness.check_spec``'s; ``control``: see above."""
     control = control or {}
     scene = out["scene"]
     valid = scene["pose_valid"].bool().cpu().numpy()
@@ -210,21 +249,23 @@ def judge_request(out: dict, truth: dict, spec: dict, rng: np.random.Generator,
     nums = {"unregistered": float(n - valid.sum()),
             "ate": geometry.ate(scene["pose"].double().cpu().numpy()[valid],
                                 truth["poses"][valid])}
-    fe = spec.get("frontend")
+    fe, ref = spec.get("frontend"), spec.get("reference")
     if fe is not None and truth.get("images") is not None:
         frames = np.sort(rng.choice(n, size=min(spec["frontend_frames"], n), replace=False))
         images = torch.as_tensor(truth["images"], device=out["xy"].device)
-        nums.update(judge_frontend(images, out["xy"], out["desc"], out["mask"],
-                                   torch.as_tensor(frames, device=images.device),
-                                   fe["max_keypoints"], fe["contrast_threshold"],
-                                   control.get("frontend")))
+        nums.update(ref.judge_frontend(images, out, torch.as_tensor(frames, device=images.device),
+                                       fe, control.get("frontend")))
     pairs = spec["pairs"]
-    nums.update(judge_pairs(scene["pair_idx"], n, pairs["window"], pairs["retrieval_k"]))
-    nums.update(judge_matches(scene["keypoints"], out["desc"], scene["kp_mask"],
-                              scene["pair_idx"], scene["match_ij"], scene["valid_ij"],
-                              truth["poses"], truth["intr"], spec["match_ratio"],
-                              spec["min_matches"], spec["consistent_px"], spec["epi_px"],
-                              control.get("matcher")))
+    nums.update(judge_pairs(scene["pair_idx"], n, pairs["window"], pairs["retrieval_k"],
+                            pairs.get("ladder", False), pairs.get("symmetric", False)))
+    real = scene["pair_idx"][:, 0] < scene["pair_idx"][:, 1]
+    real_pairs = scene["pair_idx"][real].long()
+    rj, rv, substitute = (ref or matcher).reference_matches(out, real_pairs, spec,
+                                                            control.get("matcher"))
+    pm, pv = substitute or (scene["match_ij"][real].long(), scene["valid_ij"][real].bool())
+    nums.update(judge_matches(scene["keypoints"], real_pairs, pm, pv, rj, rv, truth["poses"],
+                              truth["intr"], spec["min_matches"], spec["consistent_px"],
+                              spec["epi_px"]))
     nums.update(judge_map(scene, control.get("poses"), control.get("points")))
     return nums
 

@@ -62,3 +62,20 @@ def match_pairs(desc: torch.Tensor, mask: torch.Tensor, pairs: torch.Tensor, rat
         e = torch.zeros((0, desc.shape[1]), dtype=torch.long, device=desc.device)
         return e, e.bool()
     return torch.cat(out_j), torch.cat(out_v)
+
+
+def reference_matches(out: dict, pairs: torch.Tensor, spec: dict, control=None):
+    """The reference of ``run_sfm``'s own matching rule (kernel 1's) on the
+    program's descriptors (``out["desc"]``, the map's keypoint mask) and on
+    its real pairs [P, 2]: (match_j, valid, substitute). ``substitute`` is
+    the control's (match_j, valid) in the program's place, ``control``
+    "fp8" (fp8 descriptors) or "no_ratio" (no ratio test), and None
+    otherwise."""
+    desc, mask, ratio = out["desc"], out["scene"]["kp_mask"], spec["match_ratio"]
+    rj, rv = match_pairs(desc, mask, pairs, ratio, "bf16")
+    substitute = None
+    if control == "fp8":
+        substitute = match_pairs(desc, mask, pairs, ratio, "fp8")
+    elif control == "no_ratio":
+        substitute = match_pairs(desc, mask, pairs, None, "bf16")
+    return rj, rv, substitute

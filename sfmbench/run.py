@@ -61,7 +61,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device=None,
     c = harness.cell(workload, here=here)
     dev = device if device is not None else card(c["workload"]["chips"])
     inputs = harness.make_inputs(c["config"], here=here)
-    prog = Program(c["config"], c["traffic"], inputs, seed, dev)
+    prog = Program(c["config"], c["traffic"], inputs, seed, dev, c["frontend"])
     build = prog.build()
     t = c["traffic"]
     mode = t["mode"]

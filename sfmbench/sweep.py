@@ -40,7 +40,7 @@ def main() -> int:
     t = c["traffic"]
     dev = card(c["workload"]["chips"])
     inputs = harness.make_inputs(c["config"])
-    prog = Program(c["config"], t, inputs, 1, dev)
+    prog = Program(c["config"], t, inputs, 1, dev, c["frontend"])
     prog.build()
     prog.warmup_open()
     for rate in (float(r) for r in args.rates.split(",")):

@@ -1,5 +1,7 @@
-"""Nothing the benchmark runs loads JAX or the JAX package, and the plain
-reference loads nothing of the program. Modules are compared by their whole
+"""Nothing the benchmark runs loads JAX or the JAX package, the program is
+imported only by the entry, the frontend kinds (``frontends/``) and the
+span reader, and the plain reference (``reference/`` and its subfolders)
+loads nothing of the program. Modules are compared by their whole
 top-level name (the part before the first dot): the port's name begins
 with the JAX package's."""
 
@@ -30,18 +32,29 @@ def test_no_file_imports_jax_or_the_jax_package():
         assert not bad, f"{p.relative_to(HERE)} imports {bad}"
 
 
+def test_only_the_entry_side_imports_the_program():
+    importers = {p.relative_to(HERE).as_posix() for p in HERE.rglob("*.py")
+                 if "tests" not in p.parts and "eacham_tpu_torch" in top_level_imports(p)}
+    assert {"entry.py", "frontends/dog.py"} <= importers
+    assert all(p in ("entry.py", "spans.py") or p.startswith("frontends/")
+               for p in importers), importers
+
+
 def test_whole_names_are_compared():
     assert "eacham_tpu_torch".split(".")[0] not in FORBIDDEN
     assert "eacham_tpu.sfm".split(".")[0] in FORBIDDEN
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for p in (HERE / "reference").glob("*.py"):
+    files = list((HERE / "reference").rglob("*.py"))
+    assert HERE / "reference" / "frontends" / "dog.py" in files
+    for p in files:
         names = top_level_imports(p)
         assert not names & (FORBIDDEN | {"eacham_tpu_torch"}), f"{p.name}: {names}"
         assert names <= {"__future__", "math", "numpy", "torch", "sfmbench"}, f"{p.name}: {names}"
     # and at run time: loading it loads no module of the program
-    code = ("import sys; sys.path.insert(0, %r); import sfmbench.reference.judge; "
+    code = ("import sys; sys.path.insert(0, %r); "
+            "import sfmbench.reference.judge, sfmbench.reference.frontends.dog; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('eacham_tpu_torch', 'eacham_tpu', 'jax')]; print(bad); assert not bad"
             % str(HERE.parent))

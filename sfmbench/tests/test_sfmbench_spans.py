@@ -44,9 +44,9 @@ def test_every_span_metric_is_read_in_a_traced_run(traced):
     assert 1 <= batch["local_ba_iters.batch"] <= 5
     assert 1 <= batch["global_ba_iters.batch"] <= 50
     assert 1 <= stream["global_ba_iters.stream"] <= 50
-    # each registration reads its candidate and its inlier count, and PnP's
-    # ten solves synchronize
-    assert batch["readbacks_per_frame.batch"] >= 12
+    # each registration reads its candidate (next_best_view: the candidate and
+    # five 0-d indices) and its inlier count; PnP's solves no longer wait
+    assert batch["readbacks_per_frame.batch"] >= 7
     assert all(r["correct"] for r in traced.values())
 
 
