@@ -33,7 +33,9 @@ atomics (``index_add_``) are left.
 
 Everything is fp32 (TF32 off, see ``eacham_tpu_torch.fp``). The LM loop is a
 host loop; its state stays on the device, the accept step is a
-``torch.where``, and the host reads one flag per iteration.
+``torch.where``, and the host reads one flag per iteration. The dense
+solver's fixed-step CG replays as a CUDA graph on a card
+(``sfm.device_loop._staged``).
 
 Sharded observations (``parallel/ba.py``): given a ``torch.distributed``
 process group, each rank holds a slice of the observation axis and every
@@ -451,24 +453,11 @@ def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
     A = torch.cat([torch.cat([S_cc, Sck], 1), torch.cat([Sck.t(), S_kk], 1)], 0)
     b = torch.cat([blk["b_red_c"].reshape(n6), blk["b_red_k"]])
     if cfg.dense_cg_iters > 0:
-        # Jacobi-preconditioned CG on the materialized matrix, a fixed
-        # number of steps: exact enough for an LM step on the damped system
-        diag = torch.clamp(A.diagonal(), min=1e-12)
-        x = torch.zeros_like(b)
-        res = b
-        z = b / diag
-        pvec = z
-        rz = res @ z
-        for _ in range(cfg.dense_cg_iters):
-            Ap = A @ pvec
-            alpha = rz / torch.clamp(pvec @ Ap, min=1e-20)
-            x = x + alpha * pvec
-            res = res - alpha * Ap
-            z = res / diag
-            rz2 = res @ z
-            pvec = z + (rz2 / torch.clamp(rz, min=1e-20)) * pvec
-            rz = rz2
-        dx = x
+        # a fixed-shape chain of about a thousand small kernels: a CUDA
+        # graph on a card (the sweep's graph cache), eager elsewhere
+        from eacham_tpu_torch.sfm.device_loop import _staged
+
+        dx = _staged(_jacobi_cg, {"A": A, "b": b}, iters=cfg.dense_cg_iters)["x"]
     else:
         # S is SPD after damping; a factorization that fails or a solution
         # that is not finite gives the zero step
@@ -478,6 +467,29 @@ def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
     d_cam = dx[:n6].reshape(N, 6) * cam_w
     d_k = dx[n6:]
     return d_cam, d_k, _back_substitute(d_cam, d_k, blk, Jc, Jp, Jk, p)
+
+
+def _jacobi_cg(t: dict, iters: int) -> dict:
+    """Jacobi-preconditioned CG on the materialized system ``t["A"] x =
+    t["b"]`` from x = 0, a fixed number of steps: exact enough for an LM
+    step on the damped system. Reads nothing back. Returns {"x"}."""
+    A, b = t["A"], t["b"]
+    diag = torch.clamp(A.diagonal(), min=1e-12)
+    x = torch.zeros_like(b)
+    res = b
+    z = b / diag
+    pvec = z
+    rz = res @ z
+    for _ in range(iters):
+        Ap = A @ pvec
+        alpha = rz / torch.clamp(pvec @ Ap, min=1e-20)
+        x = x + alpha * pvec
+        res = res - alpha * Ap
+        z = res / diag
+        rz2 = res @ z
+        pvec = z + (rz2 / torch.clamp(rz, min=1e-20)) * pvec
+        rz = rz2
+    return {"x": x}
 
 
 def _block_diagonal(U: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,16 @@ layout, and ``build_match_tables_deep`` produces the 6-tuple that
 ``initialize_sfm`` takes as ``match_tables`` — so the pipeline runs
 unchanged on either frontend. The entry points run on the card unless the
 caller passes ``device="cpu"``.
+
+Spans of ``utils.timer`` (recorded only under a profiler): ``features.deep.extract``
+around ``extract_deep_batch`` (counts ``frames``, ``chunks``, ``readbacks``), and
+``sfm.matches.deep`` around ``build_match_tables_deep`` with the children
+``.pairs`` (``candidate_pairs``, ``bucket_pairs`` and the pair list's upload:
+``readbacks``), ``.match`` (``match_all_pairs_deep``: ``pairs``, the real ones,
+``rows``, the pairs computed with the chunk's padding, ``attention_calls``,
+``readbacks``) and ``.verify`` (epipolar verification, the gate and the
+inverse tables: ``readbacks``, the essential-matrix refits' waits, counted in
+``geometry.epipolar``).
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ from eacham_tpu_torch.sfm.matches import (
     all_pairs_index, bucket_pairs, candidate_pairs, invert_matches,
     verify_matches_epipolar,
 )
+from eacham_tpu_torch.utils import timer
 
 # Pairs per pass of the matcher. The reference takes 4 to bound its
 # activations; per-pair results do not depend on the chunk beyond summation
@@ -74,6 +85,15 @@ def load_frontend_params(weights_dir=None, generator: torch.Generator | None = N
     return superpoint, matcher, n_layers
 
 
+def _on_device(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``as_tensor``, counted as a read-back (``utils.timer``) where ``x`` is not
+    a tensor on ``dev``'s kind of device: on a card, an upload from pageable
+    memory waits for it."""
+    if not (torch.is_tensor(x) and x.device.type == dev.type):
+        timer.add("readbacks")
+    return as_tensor(x, dev, dtype)
+
+
 def pad_images_for_conv(images: torch.Tensor) -> torch.Tensor:
     """Zero-pad [N, H, W] so H, W are multiples of the encoder stride."""
     N, H, W = images.shape
@@ -96,11 +116,16 @@ def extract_deep_batch(model: sp.SuperPointNet, images, max_keypoints: int = 512
     frames at 512x384 alone is 5 GB. The frame batch moves the convolutions'
     summation order, and with it keypoints by under 1e-3 px."""
     dev = resolve_device(device)
-    images = pad_images_for_conv(as_tensor(images, dev, torch.float32))
-    outs = [sp.extract_deep(model, images[s:s + frame_chunk],
-                            max_keypoints=max_keypoints, score_threshold=score_threshold)
-            for s in range(0, images.shape[0], frame_chunk)]
-    return tuple(torch.cat([o[i] for o in outs]) for i in range(4))
+    with timer.span("features.deep.extract") as span:
+        images = pad_images_for_conv(_on_device(images, dev, torch.float32))
+        span.add("frames", images.shape[0])
+        outs = []
+        for s in range(0, images.shape[0], frame_chunk):
+            outs.append(sp.extract_deep(model, images[s:s + frame_chunk],
+                                        max_keypoints=max_keypoints,
+                                        score_threshold=score_threshold))
+            span.add("chunks")
+        return tuple(torch.cat([o[i] for o in outs]) for i in range(4))
 
 
 @torch.no_grad()
@@ -127,6 +152,7 @@ def match_all_pairs_deep(
     pad = (-P) % chunk
     if pad:
         pi = torch.cat([pi, pi.new_zeros((pad, 2))])
+    timer.add("rows", pi.shape[0])
     mj, mv = [], []
     for s in range(0, pi.shape[0], chunk):
         i, j = pi[s:s + chunk, 0], pi[s:s + chunk, 1]
@@ -167,27 +193,34 @@ def build_match_tables_deep(
     ``device``; P includes the bucket padding.
     """
     dev = resolve_device(device)
-    xy = as_tensor(xy, dev, torch.float32)
-    desc = as_tensor(desc, dev, torch.float32)
-    kp_mask = as_tensor(kp_mask, dev, torch.bool)
-    if pair_window > 0:
-        pairs = candidate_pairs(desc, kp_mask, window=pair_window,
-                                retrieval_k=retrieval_k, ladder=ladder)
-    else:
-        pairs = all_pairs_index(xy.shape[0])
-    pair_idx = torch.as_tensor(bucket_pairs(pairs), device=dev)
-    match_ij, valid_ij, pair_ok = match_all_pairs_deep(
-        model, xy, desc, kp_mask, pair_idx, image_size,
-        min_matches=min_matches, chunk=chunk, threshold=threshold)
-    pair_ok = pair_ok & (pair_idx[:, 0] < pair_idx[:, 1])
-    if verify is not None:
-        intr, generator, px_thr, n_hyp = verify
-        valid_ij = verify_matches_epipolar(
-            xy, pair_idx, match_ij, valid_ij, as_tensor(intr, dev, torch.float32),
-            generator, px_threshold=px_thr, n_hyp=n_hyp)
-        pair_ok = pair_ok & (valid_ij.sum(-1) > min_matches)
-    valid_ij = valid_ij & pair_ok[:, None]
-    match_ji, valid_ji = invert_matches(match_ij, valid_ij)
+    with timer.span("sfm.matches.deep"):
+        xy = _on_device(xy, dev, torch.float32)
+        desc = _on_device(desc, dev, torch.float32)
+        kp_mask = _on_device(kp_mask, dev, torch.bool)
+        with timer.span("sfm.matches.deep.pairs") as span:
+            if pair_window > 0:
+                # the [N, N] frame similarity is read back to the host
+                span.add("readbacks")
+                pairs = candidate_pairs(desc, kp_mask, window=pair_window,
+                                        retrieval_k=retrieval_k, ladder=ladder)
+            else:
+                pairs = all_pairs_index(xy.shape[0])
+            pair_idx = timer.readback(torch.as_tensor, bucket_pairs(pairs), device=dev)
+        with timer.span("sfm.matches.deep.match") as span:
+            span.add("pairs", int((pairs[:, 0] < pairs[:, 1]).sum()))
+            match_ij, valid_ij, pair_ok = match_all_pairs_deep(
+                model, xy, desc, kp_mask, pair_idx, image_size,
+                min_matches=min_matches, chunk=chunk, threshold=threshold)
+        with timer.span("sfm.matches.deep.verify"):
+            pair_ok = pair_ok & (pair_idx[:, 0] < pair_idx[:, 1])
+            if verify is not None:
+                intr, generator, px_thr, n_hyp = verify
+                valid_ij = verify_matches_epipolar(
+                    xy, pair_idx, match_ij, valid_ij, _on_device(intr, dev, torch.float32),
+                    generator, px_threshold=px_thr, n_hyp=n_hyp)
+                pair_ok = pair_ok & (valid_ij.sum(-1) > min_matches)
+            valid_ij = valid_ij & pair_ok[:, None]
+            match_ji, valid_ji = invert_matches(match_ij, valid_ij)
     return pair_idx, pair_ok, match_ij, valid_ij, match_ji, valid_ji
 
 

@@ -26,6 +26,7 @@ from torch import nn
 
 from eacham_tpu_torch.features.deep.superpoint import SuperPointNet, lecun_init_
 from eacham_tpu_torch.ops.attention import attention
+from eacham_tpu_torch.utils import timer
 
 DIM = 256
 HEADS = 4
@@ -36,7 +37,7 @@ LN_EPS = 1e-6             # the reference's LayerNorm epsilon (torch's default i
 
 def normalize_keypoints(uv: torch.Tensor, width: float, height: float):
     """Center + scale to ~[-1, 1] by max(w, h)/2."""
-    size = torch.tensor([width, height], dtype=uv.dtype, device=uv.device)
+    size = timer.readback(torch.tensor, [width, height], dtype=uv.dtype, device=uv.device)
     return (uv - size / 2.0) / (size.max() / 2.0)
 
 
@@ -81,6 +82,7 @@ class AttentionBlock(nn.Module):
             q = _apply_rotary(q, ang_x)
             k = _apply_rotary(k, ang_y)
         # the kernel takes [B, H, N, D] as it lies in memory
+        timer.add("attention_calls")
         o = attention(q.contiguous(), k.contiguous(), v.contiguous(), mask_y.contiguous())
         o = self.proj(o.transpose(1, 2).reshape(B, N, DIM))
         # gated MLP on the concatenated message (LightGlue-style update)

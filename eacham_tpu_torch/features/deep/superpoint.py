@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from eacham_tpu_torch.features.detector import _gauss_kernel, _sep_blur, top_k_stable
+from eacham_tpu_torch.utils import timer
 
 CELL = 8
 DESC_DIM = 256
@@ -122,7 +123,9 @@ def _image_quadratic_refine(images: torch.Tensor, xy_int: torch.Tensor,
     structure every view sees. images [B, H, W], xy_int [B, K, 2] integer.
     Returns (offsets [B, K, 2], ok [B, K])."""
     B, H, W = images.shape
-    blur = _sep_blur(images, _gauss_kernel(sigma))
+    # the taps go from the host to the card: a wait, counted
+    taps = timer.readback(torch.as_tensor, _gauss_kernel(sigma), device=images.device)
+    blur = _sep_blur(images, taps)
     xi = xy_int[..., 0].long()
     yi = xy_int[..., 1].long()
     b = torch.arange(B, device=images.device)[:, None]

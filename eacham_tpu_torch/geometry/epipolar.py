@@ -4,6 +4,11 @@ eacham_tpu/geometry/epipolar.py).
 Hypotheses are normalized 8-point solves (inverse-iteration null vector),
 scored by Sampson distance MSAC; the winner is refit once exactly
 (``torch.linalg.eigh`` + ``svd``). Leading axes of the data are batch axes.
+
+The refit makes the host wait for the card four times: ``eigh`` and ``svd``
+read their error status back (``svd`` twice, on torch 2.11 with CUDA 12.8)
+and the projection's diagonal is uploaded from pageable memory. Each is
+counted as ``readbacks`` on the innermost span (``utils.timer``).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from eacham_tpu_torch.geometry.ransac import (
 )
 from eacham_tpu_torch.geometry.se3 import rt_to_mat
 from eacham_tpu_torch.geometry.triangulation import triangulate_dlt
+from eacham_tpu_torch.utils import timer
 
 _EPS = 1e-12
 _SQRT2 = 1.4142135623730951
@@ -30,7 +36,7 @@ def _nullvec_3x3(A: torch.Tensor, exact: bool, weights=None) -> torch.Tensor:
         # 9x9 moved E by ~1e-4 from the fp64 answer, the reference's by ~2e-5
         A64 = A.double()
         AtA = A64.transpose(-1, -2) @ A64
-        v = torch.linalg.eigh(AtA).eigenvectors[..., :, 0].to(A.dtype)
+        v = timer.readback(torch.linalg.eigh, AtA).eigenvectors[..., :, 0].to(A.dtype)
     else:
         v = smallest_eigvec(A.transpose(-1, -2) @ A)
     return v.reshape(v.shape[:-1] + (3, 3))
@@ -72,8 +78,9 @@ def eight_point(xy1: torch.Tensor, xy2: torch.Tensor, exact: bool = False,
     F = T2.transpose(-1, -2) @ F @ T1
     if not exact:
         return F / (torch.linalg.matrix_norm(F)[..., None, None] + _EPS)
+    timer.add("readbacks", 2)
     U, _, Vh = torch.linalg.svd(F)
-    diag = torch.tensor([1.0, 1.0, 0.0], dtype=F.dtype, device=F.device)
+    diag = timer.readback(torch.tensor, [1.0, 1.0, 0.0], dtype=F.dtype, device=F.device)
     return (U * diag) @ Vh
 
 

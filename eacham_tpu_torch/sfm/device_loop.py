@@ -18,7 +18,10 @@ graph. ``GraphCache`` runs a stage's key (device, stage, every input's shape
 and dtype, its options) eagerly on its first use, captures it on its second
 and replays it after that. On the CPU every stage runs eagerly. The two host
 decisions between the stages (the inlier gate and the local-BA cadence)
-keep them apart; the local BA reads sizes and LM flags back and stays eager.
+keep them apart; the local BA reads sizes and LM flags back and stays eager,
+but for the fixed-shape CG of its dense solver, which goes through the same
+cache (``ba.core._jacobi_cg``: one graph a window size, replayed in every LM
+iteration).
 
 Each iteration's stages are spans of ``utils.timer`` (recorded while a
 profiler runs): ``sfm.device_loop.next_view``, ``.pnp``, ``.triangulate``
@@ -163,10 +166,11 @@ def _graphable(dev: torch.device) -> bool:
 
 def _staged(stage, inputs: dict, **options) -> dict:
     """``stage(inputs, **options)``: through ``_GRAPHS`` on a CUDA card,
-    keyed by the device, the thread (a graph's static buffers serve one
-    thread), the stage, every input's shape and dtype and the options;
-    eagerly elsewhere."""
-    dev = inputs["cur"].device
+    keyed by the device (the first input's), the thread (a graph's static
+    buffers serve one thread), the stage, every input's shape and dtype and
+    the options; eagerly elsewhere. Besides the sweep's stages it runs the
+    dense BA solver's CG (``ba.core._jacobi_cg``)."""
+    dev = next(iter(inputs.values())).device
     if not _graphable(dev):
         return stage(inputs, **options)
     key = (dev, threading.get_ident(), stage.__name__,

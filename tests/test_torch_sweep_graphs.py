@@ -9,9 +9,11 @@ here) bit for bit; the stage entry points with the frame as a tensor against
 its capture on a key's second use and its bound, with a stub capturer; and
 ``run_sfm`` on the sweep test's 12 frames, bit for bit before and after, and
 through the cache with a capturer that reruns the stage into fixed output
-buffers as a replay does. On a CUDA card (``cuda``): the graphed sweep
+buffers as a replay does; the dense BA solver's CG (``ba.core._jacobi_cg``)
+through the same cache. On a CUDA card (``cuda``): the graphed sweep
 against an eager one, a returned scene that a later request's replays leave
-alone, and a two-chunk stream that replays."""
+alone, a two-chunk stream that replays, and the graphed dense BA against
+the eager one."""
 
 from functools import partial
 
@@ -433,6 +435,55 @@ def test_run_sfm_through_the_cache_keeps_its_bits(tracks, monkeypatch):
     assert captures == 3 and replays == len(stages) - 6
 
 
+def _dense_ba(method, device="cpu"):
+    """``refine_ba`` on the BA tests' problem through the dense solver's CG,
+    under a span; returns (poses, points, intr, info) and the span's graph
+    counts."""
+    import importlib.util
+    from pathlib import Path
+
+    from eacham_tpu_torch import convert
+    from eacham_tpu_torch.ba import core as tba
+
+    # by path: a machine may have another top-level ``tests`` package installed
+    spec = importlib.util.spec_from_file_location(
+        "torch_ba_tests", Path(__file__).with_name("test_torch_ba.py"))
+    ba_tests = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ba_tests)
+    d, _ = ba_tests.make_problem()
+    p = convert.ba_problem_from_numpy(d, device=device)
+    cfg = tba.BAConfig(max_iters=12, tolerance=1e-9, solver="dense", method=method)
+    timer.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with timer.span("ba"):
+            out = tba.refine_ba(p, cfg)
+    (rec,) = [r for r in timer.records() if r["name"] == "ba"]
+    timer.clear()
+    return out, {k: v for k, v in rec["counts"].items() if k.startswith("graph_")}
+
+
+def _assert_same_ba(a, b):
+    assert a[3]["iterations"] == b[3]["iterations"]
+    for x, y in zip(a[:3] + (a[3]["final_cost"],), b[:3] + (b[3]["final_cost"],)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("method", ["lm", "dogleg"])
+def test_dense_ba_cg_through_the_cache_keeps_its_bits(method, monkeypatch):
+    """The dense solver's fixed-step CG is one key of the cache: eager on its
+    first LM iteration, captured on its second, replayed after; the result
+    is the eager run's, bit for bit."""
+    eager, counts = _dense_ba(method)
+    assert counts == {}          # the CPU: eager throughout
+    monkeypatch.setattr(device_loop, "_graphable", lambda dev: True)
+    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache(
+        capture=partial(device_loop.StageGraph, record=_rerun_into)))
+    graphed, counts = _dense_ba(method)
+    assert eager[3]["iterations"] >= 3
+    _assert_same_ba(graphed, eager)
+    assert counts == {"graph_captures": 1, "graph_replays": eager[3]["iterations"] - 2}
+
+
 # ---- on the card --------------------------------------------------------------------
 
 def _card():
@@ -479,6 +530,18 @@ def test_a_two_chunk_stream_replays_on_the_card(frames, monkeypatch):
     timer.clear()
     assert _counts(recs, "graph_replays") > 0
     _assert_equal(graphed, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["lm", "dogleg"])
+def test_dense_ba_cg_graph_is_the_eager_solve_on_the_card(method, monkeypatch):
+    _card()
+    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache(size=0))
+    eager, _ = _dense_ba(method, "cuda")
+    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache())
+    graphed, counts = _dense_ba(method, "cuda")
+    assert counts == {"graph_captures": 1, "graph_replays": eager[3]["iterations"] - 2}
+    _assert_same_ba(graphed, eager)
 
 
 # ---- the benchmark's reader ----------------------------------------------------------
