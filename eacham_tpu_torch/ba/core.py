@@ -33,9 +33,12 @@ atomics (``index_add_``) are left.
 
 Everything is fp32 (TF32 off, see ``eacham_tpu_torch.fp``). The LM loop is a
 host loop; its state stays on the device, the accept step is a
-``torch.where``, and the host reads one flag per iteration. The dense
-solver's fixed-step CG replays as a CUDA graph on a card
-(``sfm.device_loop._staged``).
+``torch.where``, and the host reads one flag per iteration. One iteration
+is one function of tensors (``_lm_iteration``) whose shapes follow the
+problem's axes alone; where nothing in it reads back (the dense solver, no
+process group) it replays as one CUDA graph on a card
+(``sfm.device_loop._staged``), so that every local-BA window of one size
+and every global BA of one shape replays one captured iteration.
 
 Sharded observations (``parallel/ba.py``): given a ``torch.distributed``
 process group, each rank holds a slice of the observation axis and every
@@ -48,6 +51,7 @@ nothing changes.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import NamedTuple
 
 import torch
@@ -231,9 +235,10 @@ def _reduce(x: torch.Tensor, group) -> torch.Tensor:
 class _Segments(NamedTuple):
     """How one ``refine_ba`` call sums per-observation rows into ``n``
     segments, in an order that the layout alone fixes. One of three forms:
-    ``order`` and ``offsets``, the live rows in segment order and each
-    segment's run between ``offsets``, summed from its first row to its
-    last (many short runs: landmarks, (landmark, camera) pairs);
+    ``order`` and ``offsets``, the rows in segment order and each segment's
+    run between ``offsets``, summed from its first row to its last, the
+    rows past the last offset in none (many short runs: landmarks,
+    (landmark, camera) pairs);
     ``slots`` [n, D], each segment's rows padded with a zero row, summed
     across (few long runs: cameras); or neither, ``n`` runs of equal length
     in place."""
@@ -252,7 +257,10 @@ class _Layout(NamedTuple):
 
 def _layout(p: BAProblem, pairs: bool) -> _Layout:
     """The segment layouts of one ``refine_ba`` call, built once before the
-    LM loop. Masked rows belong to no segment, except in equal runs.
+    LM loop. Masked rows belong to no segment, except in equal runs. The
+    layout's shapes follow ``O``, ``L`` and ``N`` alone (and, for cameras
+    not in equal runs, the longest camera run), so that the LM iteration
+    over it has one shape for every problem of one size.
 
     Camera axis. The uncompacted window of ``sfm/scene.ba_problem_windowed``
     is ``C`` runs of exactly ``K`` rows (``arange(C).repeat_interleave(K)``):
@@ -263,26 +271,23 @@ def _layout(p: BAProblem, pairs: bool) -> _Layout:
     and each camera's run gathered into a padded row: a camera holds
     hundreds of rows, too many for one thread to sum in turn.
 
-    Landmark axis. Rows are sorted once by (landmark, camera), stably, and
-    the masked ones cut off, so that the padding's landmark 0 keeps its own
-    observations only; the same order gives the (landmark, camera) runs of
-    W. Reads two numbers to the host (a third, the longest camera run,
-    where the cameras are not in equal runs)."""
+    Landmark axis. Rows are sorted once by (landmark, camera), stably; the
+    masked ones sort to the tail, past the last landmark's run, where no
+    segment reads them, so that the padding's landmark 0 keeps its own
+    observations only. ``order`` keeps all ``O`` rows: the live runs and
+    their offsets are those of the live rows alone. The same order gives
+    the (landmark, camera) runs of W. Reads one flag to the host (and the
+    longest camera run, where the cameras are not in equal runs)."""
     N, L = p.poses.shape[0], p.points.shape[0]
     O = p.obs_cam.shape[0]
     dev = p.obs_cam.device
     run = O // N if O % N == 0 else 0
-    equal = ((p.obs_cam == torch.arange(O, device=dev) // run).all() if run
-             else p.obs_mask.new_zeros(()))
     key, order = torch.sort(torch.where(p.obs_mask, p.obs_pt * N + p.obs_cam, L * N),
                             stable=True)
-    equal, n_live = timer.readback(torch.Tensor.tolist,
-                                   torch.stack([equal.long(), p.obs_mask.sum()]))
-    key, order = key[:n_live], order[:n_live]
     pt = _Segments(L, order, torch.searchsorted(key, torch.arange(L + 1, device=dev) * N))
     pair = (_Segments(L * N, order, torch.searchsorted(key, torch.arange(L * N + 1, device=dev)))
             if pairs else None)
-    if equal:
+    if run and timer.readback(bool, (p.obs_cam == torch.arange(O, device=dev) // run).all()):
         return _Layout(_Segments(N), pt, pair)
     key, order = torch.sort(torch.where(p.obs_mask, p.obs_cam, N), stable=True)
     start = torch.searchsorted(key, torch.arange(N + 1, device=dev))
@@ -453,11 +458,16 @@ def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
     A = torch.cat([torch.cat([S_cc, Sck], 1), torch.cat([Sck.t(), S_kk], 1)], 0)
     b = torch.cat([blk["b_red_c"].reshape(n6), blk["b_red_k"]])
     if cfg.dense_cg_iters > 0:
-        # a fixed-shape chain of about a thousand small kernels: a CUDA
-        # graph on a card (the sweep's graph cache), eager elsewhere
-        from eacham_tpu_torch.sfm.device_loop import _staged
+        # a fixed-shape chain of about a thousand small kernels. Without a
+        # group it runs inline, inside the LM iteration's graph; a sharded
+        # iteration runs eagerly (its all-reduces), and its CG alone is a
+        # CUDA graph on a card (the sweep's graph cache)
+        if group is None:
+            dx = _jacobi_cg({"A": A, "b": b}, iters=cfg.dense_cg_iters)["x"]
+        else:
+            from eacham_tpu_torch.sfm.device_loop import _staged
 
-        dx = _staged(_jacobi_cg, {"A": A, "b": b}, iters=cfg.dense_cg_iters)["x"]
+            dx = _staged(_jacobi_cg, {"A": A, "b": b}, iters=cfg.dense_cg_iters)["x"]
     else:
         # S is SPD after damping; a factorization that fails or a solution
         # that is not finite gives the zero step
@@ -622,6 +632,71 @@ def use_dense_solver(p: BAProblem, cfg: BAConfig) -> bool:
     return p.points.shape[0] * p.poses.shape[0] * 8 * 128 * 4 <= cfg.dense_budget_bytes
 
 
+_PROBLEM = ("obs_cam", "obs_pt", "obs_uv", "obs_mask", "cam_in_ba", "cam_fixed", "pt_in_ba",
+            "pt_obs_count", "abs_pose", "abs_mask")
+
+
+def _problem_tensors(p: BAProblem, lay: _Layout) -> dict:
+    """The problem, its anchors (``poses0``, ``points0``, ``intr0``: the
+    initial state) and its layout as named tensors, the form the LM
+    iteration takes them in; absent parts are left out."""
+    t = {"poses0": p.poses, "points0": p.points, "intr0": p.intr,
+         **{f: getattr(p, f) for f in _PROBLEM}, "order": lay.pt.order,
+         "pt_offsets": lay.pt.offsets, "cam_slots": lay.cam.slots,
+         "pair_offsets": None if lay.pair is None else lay.pair.offsets}
+    return {k: v for k, v in t.items() if v is not None}
+
+
+def _lm_iteration(t: dict, cfg: BAConfig, dense: bool, group=None) -> dict:
+    """One LM (or dogleg) iteration from the state ``t["poses"]``,
+    ``t["points"]``, ``t["intr"]``, ``t["lam"]`` (the trust radius with
+    dogleg) and ``t["cost"]`` on the problem that ``_problem_tensors`` gave
+    (the rest of ``t``). Returns the next state and ``done``, the stop flag.
+    Reads nothing back unless the solver is the PCG."""
+    p = BAProblem(poses=t["poses0"], points=t["points0"], intr=t["intr0"],
+                  **{f: t.get(f) for f in _PROBLEM})
+    N, L = p.poses.shape[0], p.points.shape[0]
+    lay = _Layout(_Segments(N, slots=t.get("cam_slots")),
+                  _Segments(L, t["order"], t["pt_offsets"]),
+                  _Segments(L * N, t["order"], t["pair_offsets"]) if dense else None)
+    solve = _solve_schur_dense if dense else _solve_schur_pcg
+    dogleg = cfg.method.lower() == "dogleg"
+    anchors = (p.poses, p.points, p.intr)
+    poses, points, intr, lam, cost = (t[k] for k in ("poses", "points", "intr", "lam", "cost"))
+
+    priors = _prior_terms(poses, points, intr, p, anchors, cfg)
+    r, Jc, Jp, Jk = _obs_linearize(poses, points, intr, p)
+    if dogleg:
+        d_cam, d_k, d_pt, m_dec = _dogleg_step(r, Jc, Jp, Jk, priors, p, lam, cfg, solve,
+                                               lay, group)
+    else:
+        d_cam, d_k, d_pt = solve(r, Jc, Jp, Jk, priors, p, lam, cfg, lay, group)
+
+    new_poses = exp_se3(d_cam) @ poses
+    new_points = points + d_pt
+    new_intr = torch.cat([intr[:2] + d_k, intr[2:]])
+    new_cost = ba_cost(new_poses, new_points, new_intr, p, anchors, cfg, group)
+    accept = new_cost < cost
+
+    poses = torch.where(accept, new_poses, poses)
+    points = torch.where(accept, new_points, points)
+    intr = torch.where(accept, new_intr, intr)
+    if dogleg:
+        rho = (cost - new_cost) / torch.clamp(m_dec, min=_EPS)
+        lam = torch.where(rho > 0.75, lam * 2.0, torch.where(rho < 0.25, lam * 0.5, lam))
+        lam = torch.clamp(lam, 1e-6, 1e6)
+        stalled = lam <= 1e-6
+    else:
+        lam = torch.where(accept, torch.clamp(lam / 3.0, min=cfg.lambda_min),
+                          torch.clamp(lam * 4.0, max=cfg.lambda_max))
+        stalled = lam >= cfg.lambda_max
+    rel = (cost - new_cost).abs() / torch.clamp(cost, min=_EPS)
+    done = (accept & (rel < cfg.tolerance)) | stalled
+    cost = torch.where(accept, new_cost, cost)
+    return {"poses": poses, "points": points, "intr": intr, "lam": lam, "cost": cost,
+            "done": done}
+
+
 @torch.no_grad()
 def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig(), group=None):
     """Run LM (or dogleg) until the relative cost decrease of an accepted
@@ -632,6 +707,13 @@ def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig(), group=None):
     every rank of it must call with its own shard and the same replicated
     state. None: one process holds every observation.
 
+    The iteration (``_lm_iteration``) runs through the sweep's graph cache
+    (``sfm.device_loop._staged``: a CUDA graph on a card, counted as
+    ``lm_graph_captures`` / ``lm_graph_replays`` on the innermost span)
+    where nothing in it reads back: the dense solver and no group. The PCG
+    solver reads its stop flag at every CG step, and a group all-reduces
+    inside: both run eagerly, as everything does on the CPU.
+
     Returns (poses, points, intr, info) with ``info`` holding
     ``initial_cost``, ``final_cost``, ``lambda`` (0-d tensors) and
     ``iterations`` (int).
@@ -641,50 +723,28 @@ def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig(), group=None):
         # regularize toward the drifted initialization, which is exactly
         # the state the anchors exist to correct
         cfg = cfg._replace(use_pose_priors=False, use_point_priors=False)
-    anchors = (p.poses, p.points, p.intr)
     dense = use_dense_solver(p, cfg)
-    solve = _solve_schur_dense if dense else _solve_schur_pcg
-    dogleg = cfg.method.lower() == "dogleg"
-    lay = _layout(p, pairs=dense)       # every sum of the call reuses it
+    problem = _problem_tensors(p, _layout(p, pairs=dense))   # every sum of the call reuses it
+    if dense and group is None:
+        from eacham_tpu_torch.sfm.device_loop import _staged
 
-    poses, points, intr = p.poses, p.points, p.intr
-    cost0 = ba_cost(poses, points, intr, p, anchors, cfg, group)
-    cost = cost0
+        step = partial(_staged, _lm_iteration, counter="lm_graph", cfg=cfg, dense=True)
+    else:
+        step = partial(_lm_iteration, cfg=cfg, dense=dense, group=group)
+
+    anchors = (p.poses, p.points, p.intr)
+    cost0 = ba_cost(*anchors, p, anchors, cfg, group)
     # with dogleg the "lam" slot carries the trust radius
-    lam = poses.new_full((), cfg.trust_radius_init if dogleg else cfg.lambda_init)
+    lam = p.poses.new_full((), cfg.trust_radius_init if cfg.method.lower() == "dogleg"
+                           else cfg.lambda_init)
+    state = {"poses": p.poses, "points": p.points, "intr": p.intr, "lam": lam, "cost": cost0}
     n_it = 0
     while n_it < cfg.max_iters:
-        priors = _prior_terms(poses, points, intr, p, anchors, cfg)
-        r, Jc, Jp, Jk = _obs_linearize(poses, points, intr, p)
-        if dogleg:
-            d_cam, d_k, d_pt, m_dec = _dogleg_step(r, Jc, Jp, Jk, priors, p, lam, cfg, solve,
-                                                   lay, group)
-        else:
-            d_cam, d_k, d_pt = solve(r, Jc, Jp, Jk, priors, p, lam, cfg, lay, group)
-
-        new_poses = exp_se3(d_cam) @ poses
-        new_points = points + d_pt
-        new_intr = torch.cat([intr[:2] + d_k, intr[2:]])
-        new_cost = ba_cost(new_poses, new_points, new_intr, p, anchors, cfg, group)
-        accept = new_cost < cost
-
-        poses = torch.where(accept, new_poses, poses)
-        points = torch.where(accept, new_points, points)
-        intr = torch.where(accept, new_intr, intr)
-        if dogleg:
-            rho = (cost - new_cost) / torch.clamp(m_dec, min=_EPS)
-            lam = torch.where(rho > 0.75, lam * 2.0, torch.where(rho < 0.25, lam * 0.5, lam))
-            lam = torch.clamp(lam, 1e-6, 1e6)
-            stalled = lam <= 1e-6
-        else:
-            lam = torch.where(accept, torch.clamp(lam / 3.0, min=cfg.lambda_min),
-                              torch.clamp(lam * 4.0, max=cfg.lambda_max))
-            stalled = lam >= cfg.lambda_max
-        rel = (cost - new_cost).abs() / torch.clamp(cost, min=_EPS)
-        done = (accept & (rel < cfg.tolerance)) | stalled
-        cost = torch.where(accept, new_cost, cost)
+        state = step({**state, **problem})
+        done = state.pop("done")
         n_it += 1
         if timer.readback(bool, done):      # the iteration's one read-back
             break
-    info = {"initial_cost": cost0, "final_cost": cost, "iterations": n_it, "lambda": lam}
-    return poses, points, intr, info
+    info = {"initial_cost": cost0, "final_cost": state["cost"], "iterations": n_it,
+            "lambda": state["lam"]}
+    return state["poses"], state["points"], state["intr"], info

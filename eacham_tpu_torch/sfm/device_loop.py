@@ -18,16 +18,17 @@ graph. ``GraphCache`` runs a stage's key (device, stage, every input's shape
 and dtype, its options) eagerly on its first use, captures it on its second
 and replays it after that. On the CPU every stage runs eagerly. The two host
 decisions between the stages (the inlier gate and the local-BA cadence)
-keep them apart; the local BA reads sizes and LM flags back and stays eager,
-but for the fixed-shape CG of its dense solver, which goes through the same
-cache (``ba.core._jacobi_cg``: one graph a window size, replayed in every LM
-iteration).
+keep them apart. The local BA reads the window's landmark count and one
+flag an LM iteration back; each LM iteration of its dense solver goes
+through the same cache (``ba.core._lm_iteration``: one graph a window
+size, replayed in every iteration of every window).
 
 Each iteration's stages are spans of ``utils.timer`` (recorded while a
 profiler runs): ``sfm.device_loop.next_view``, ``.pnp``, ``.triangulate``
 (both passes; the first holds ``set_pose``) and ``.local_ba`` (the window
 build, ``refine_ba`` and the scatters; its count ``iterations``). A graphed
-stage counts ``graph_captures`` or ``graph_replays`` on its span.
+stage counts ``graph_captures`` or ``graph_replays`` on its span, a graphed
+LM iteration ``lm_graph_captures`` or ``lm_graph_replays``.
 ``registered`` and ``pnp_failed`` are counted on the caller's span
 (``sfm.device_loop`` in ``sfm/pipeline.py``).
 """
@@ -128,23 +129,23 @@ class GraphCache:
     """Stages by key, the ``size`` most recently used: a key's first use
     runs its stage eagerly, its second captures it (``capture(fn, inputs)``
     gives a callable of the inputs) and runs the capture, later uses run
-    that. Counts ``graph_captures`` and ``graph_replays`` on the innermost
-    span."""
+    that. Counts ``<counter>_captures`` and ``<counter>_replays`` on the
+    innermost span."""
 
     def __init__(self, size: int = 8, capture=StageGraph):
         self.size, self.capture = size, capture
         self.entries: OrderedDict = OrderedDict()     # key -> None once seen, then the graph
 
-    def run(self, key, fn, inputs: dict) -> dict:
+    def run(self, key, fn, inputs: dict, counter: str = "graph") -> dict:
         if key not in self.entries:
             self._keep(key, None)
             return fn(inputs)
         graph = self.entries[key]
         if graph is None:
             graph = self.capture(fn, inputs)
-            timer.add("graph_captures")
+            timer.add(f"{counter}_captures")
         else:
-            timer.add("graph_replays")
+            timer.add(f"{counter}_replays")
         self._keep(key, graph)
         return graph(inputs)
 
@@ -164,19 +165,21 @@ def _graphable(dev: torch.device) -> bool:
     return dev.type == "cuda"
 
 
-def _staged(stage, inputs: dict, **options) -> dict:
+def _staged(stage, inputs: dict, counter: str = "graph", **options) -> dict:
     """``stage(inputs, **options)``: through ``_GRAPHS`` on a CUDA card,
     keyed by the device (the first input's), the thread (a graph's static
     buffers serve one thread), the stage, every input's shape and dtype and
-    the options; eagerly elsewhere. Besides the sweep's stages it runs the
-    dense BA solver's CG (``ba.core._jacobi_cg``)."""
+    the options, its captures and replays counted under ``counter``;
+    eagerly elsewhere. Besides the sweep's stages it runs the BA's LM
+    iteration (``ba.core._lm_iteration``, counter ``lm_graph``) and a
+    sharded BA's dense CG (``ba.core._jacobi_cg``)."""
     dev = next(iter(inputs.values())).device
     if not _graphable(dev):
         return stage(inputs, **options)
     key = (dev, threading.get_ident(), stage.__name__,
            tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()),
            tuple(sorted(options.items())))
-    return _GRAPHS.run(key, partial(stage, **options), inputs)
+    return _GRAPHS.run(key, partial(stage, **options), inputs, counter)
 
 
 @torch.no_grad()

@@ -9,11 +9,12 @@ here) bit for bit; the stage entry points with the frame as a tensor against
 its capture on a key's second use and its bound, with a stub capturer; and
 ``run_sfm`` on the sweep test's 12 frames, bit for bit before and after, and
 through the cache with a capturer that reruns the stage into fixed output
-buffers as a replay does; the dense BA solver's CG (``ba.core._jacobi_cg``)
-through the same cache. On a CUDA card (``cuda``): the graphed sweep
-against an eager one, a returned scene that a later request's replays leave
-alone, a two-chunk stream that replays, and the graphed dense BA against
-the eager one."""
+buffers as a replay does; the dense BA's LM iteration, CG and all
+(``ba.core._lm_iteration``), through the same cache. On a CUDA card
+(``cuda``): the graphed sweep, its local and global BAs' iterations
+replayed, against an eager one, a returned scene that a later request's
+replays leave alone, a two-chunk stream that replays, and the graphed
+dense BA against the eager one."""
 
 from functools import partial
 
@@ -365,7 +366,7 @@ def test_keys_follow_shapes_dtypes_and_options(monkeypatch):
     keys = []
 
     class Keys:
-        def run(self, key, fn, inputs):
+        def run(self, key, fn, inputs, counter):
             keys.append(key)
             return fn(inputs)
 
@@ -433,6 +434,7 @@ def test_run_sfm_through_the_cache_keeps_its_bits(tracks, monkeypatch):
     captures = sum(r["counts"].get("graph_captures", 0) for r in stages)
     # three keys: each eager once, captured once, replayed on the other frames
     assert captures == 3 and replays == len(stages) - 6
+    assert _lm_replays(recs) > 0
 
 
 def _dense_ba(method, device="cpu"):
@@ -459,7 +461,7 @@ def _dense_ba(method, device="cpu"):
             out = tba.refine_ba(p, cfg)
     (rec,) = [r for r in timer.records() if r["name"] == "ba"]
     timer.clear()
-    return out, {k: v for k, v in rec["counts"].items() if k.startswith("graph_")}
+    return out, {k: v for k, v in rec["counts"].items() if "graph_" in k}
 
 
 def _assert_same_ba(a, b):
@@ -470,9 +472,9 @@ def _assert_same_ba(a, b):
 
 @pytest.mark.parametrize("method", ["lm", "dogleg"])
 def test_dense_ba_cg_through_the_cache_keeps_its_bits(method, monkeypatch):
-    """The dense solver's fixed-step CG is one key of the cache: eager on its
-    first LM iteration, captured on its second, replayed after; the result
-    is the eager run's, bit for bit."""
+    """The dense solver's fixed-step CG runs inside the LM iteration, which
+    is one key of the cache: eager on its first iteration, captured on its
+    second, replayed after; the result is the eager run's, bit for bit."""
     eager, counts = _dense_ba(method)
     assert counts == {}          # the CPU: eager throughout
     monkeypatch.setattr(device_loop, "_graphable", lambda dev: True)
@@ -481,7 +483,8 @@ def test_dense_ba_cg_through_the_cache_keeps_its_bits(method, monkeypatch):
     graphed, counts = _dense_ba(method)
     assert eager[3]["iterations"] >= 3
     _assert_same_ba(graphed, eager)
-    assert counts == {"graph_captures": 1, "graph_replays": eager[3]["iterations"] - 2}
+    assert counts == {"lm_graph_captures": 1,
+                      "lm_graph_replays": eager[3]["iterations"] - 2}
 
 
 # ---- on the card --------------------------------------------------------------------
@@ -494,6 +497,12 @@ def _card():
 def _counts(recs, name):
     return sum(r["counts"].get(name, 0) for r in recs
                if r["name"] in ("sfm.device_loop.pnp", "sfm.device_loop.triangulate"))
+
+
+def _lm_replays(recs):
+    """LM iterations replayed in the local and the global BAs."""
+    return sum(r["counts"].get("lm_graph_replays", 0) for r in recs
+               if r["name"] in ("sfm.device_loop.local_ba", "ba.global"))
 
 
 @pytest.mark.cuda
@@ -511,6 +520,7 @@ def test_graphed_sweep_is_the_eager_sweep_on_the_card(tracks, monkeypatch):
     timer.clear()
     assert stats["registered"] == N_FRAMES
     assert _counts(recs, "graph_captures") == 3 and _counts(recs, "graph_replays") > 0
+    assert _lm_replays(recs) > 0
     _assert_equal(_fields(first), eager[0])
     _assert_equal(_fields(second), eager[1])
     # request 2 replayed the graphs request 1 captured: request 1's scene is untouched
@@ -528,7 +538,7 @@ def test_a_two_chunk_stream_replays_on_the_card(frames, monkeypatch):
         graphed = _fields(_stream(frames, "cuda"))
     recs = list(timer.records())
     timer.clear()
-    assert _counts(recs, "graph_replays") > 0
+    assert _counts(recs, "graph_replays") > 0 and _lm_replays(recs) > 0
     _assert_equal(graphed, eager)
 
 
@@ -540,7 +550,8 @@ def test_dense_ba_cg_graph_is_the_eager_solve_on_the_card(method, monkeypatch):
     eager, _ = _dense_ba(method, "cuda")
     monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache())
     graphed, counts = _dense_ba(method, "cuda")
-    assert counts == {"graph_captures": 1, "graph_replays": eager[3]["iterations"] - 2}
+    assert counts == {"lm_graph_captures": 1,
+                      "lm_graph_replays": eager[3]["iterations"] - 2}
     _assert_same_ba(graphed, eager)
 
 
