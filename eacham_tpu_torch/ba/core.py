@@ -35,10 +35,8 @@ Everything is fp32 (TF32 off, see ``eacham_tpu_torch.fp``). The LM loop is a
 host loop; its state stays on the device, the accept step is a
 ``torch.where``, and the host reads one flag per iteration. One iteration
 is one function of tensors (``_lm_iteration``) whose shapes follow the
-problem's axes alone; where nothing in it reads back (the dense solver, no
-process group) it replays as one CUDA graph on a card
-(``sfm.device_loop._staged``), so that every local-BA window of one size
-and every global BA of one shape replays one captured iteration.
+problem's axes alone: the dense solver without a group runs it through
+``graphs.staged``.
 
 Sharded observations (``parallel/ba.py``): given a ``torch.distributed``
 process group, each rank holds a slice of the observation axis and every
@@ -57,6 +55,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from eacham_tpu_torch import graphs
 from eacham_tpu_torch.geometry.linalg import inv3x3
 from eacham_tpu_torch.geometry.se3 import exp_se3, inverse_se3, log_se3
 from eacham_tpu_torch.utils import timer
@@ -458,16 +457,7 @@ def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
     A = torch.cat([torch.cat([S_cc, Sck], 1), torch.cat([Sck.t(), S_kk], 1)], 0)
     b = torch.cat([blk["b_red_c"].reshape(n6), blk["b_red_k"]])
     if cfg.dense_cg_iters > 0:
-        # a fixed-shape chain of about a thousand small kernels. Without a
-        # group it runs inline, inside the LM iteration's graph; a sharded
-        # iteration runs eagerly (its all-reduces), and its CG alone is a
-        # CUDA graph on a card (the sweep's graph cache)
-        if group is None:
-            dx = _jacobi_cg({"A": A, "b": b}, iters=cfg.dense_cg_iters)["x"]
-        else:
-            from eacham_tpu_torch.sfm.device_loop import _staged
-
-            dx = _staged(_jacobi_cg, {"A": A, "b": b}, iters=cfg.dense_cg_iters)["x"]
+        dx = _jacobi_cg(A, b, cfg.dense_cg_iters)
     else:
         # S is SPD after damping; a factorization that fails or a solution
         # that is not finite gives the zero step
@@ -479,11 +469,10 @@ def _solve_schur_dense(r, Jc, Jp, Jk, priors, p: BAProblem, lam, cfg: BAConfig,
     return d_cam, d_k, _back_substitute(d_cam, d_k, blk, Jc, Jp, Jk, p)
 
 
-def _jacobi_cg(t: dict, iters: int) -> dict:
-    """Jacobi-preconditioned CG on the materialized system ``t["A"] x =
-    t["b"]`` from x = 0, a fixed number of steps: exact enough for an LM
-    step on the damped system. Reads nothing back. Returns {"x"}."""
-    A, b = t["A"], t["b"]
+def _jacobi_cg(A: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
+    """Jacobi-preconditioned CG on the materialized system ``A x = b`` from
+    x = 0, a fixed number of steps: exact enough for an LM step on the
+    damped system. Reads nothing back."""
     diag = torch.clamp(A.diagonal(), min=1e-12)
     x = torch.zeros_like(b)
     res = b
@@ -499,7 +488,7 @@ def _jacobi_cg(t: dict, iters: int) -> dict:
         rz2 = res @ z
         pvec = z + (rz2 / torch.clamp(rz, min=1e-20)) * pvec
         rz = rz2
-    return {"x": x}
+    return x
 
 
 def _block_diagonal(U: torch.Tensor) -> torch.Tensor:
@@ -707,12 +696,11 @@ def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig(), group=None):
     every rank of it must call with its own shard and the same replicated
     state. None: one process holds every observation.
 
-    The iteration (``_lm_iteration``) runs through the sweep's graph cache
-    (``sfm.device_loop._staged``: a CUDA graph on a card, counted as
-    ``lm_graph_captures`` / ``lm_graph_replays`` on the innermost span)
-    where nothing in it reads back: the dense solver and no group. The PCG
-    solver reads its stop flag at every CG step, and a group all-reduces
-    inside: both run eagerly, as everything does on the CPU.
+    The iteration (``_lm_iteration``) runs through ``graphs.staged`` (a
+    CUDA graph on a card, counter ``lm_graph``) where nothing in it reads
+    back: the dense solver and no group. The PCG solver reads its stop flag
+    at every CG step, and a group all-reduces inside: both run eagerly, as
+    everything does on the CPU.
 
     Returns (poses, points, intr, info) with ``info`` holding
     ``initial_cost``, ``final_cost``, ``lambda`` (0-d tensors) and
@@ -726,9 +714,7 @@ def refine_ba(p: BAProblem, cfg: BAConfig = BAConfig(), group=None):
     dense = use_dense_solver(p, cfg)
     problem = _problem_tensors(p, _layout(p, pairs=dense))   # every sum of the call reuses it
     if dense and group is None:
-        from eacham_tpu_torch.sfm.device_loop import _staged
-
-        step = partial(_staged, _lm_iteration, counter="lm_graph", cfg=cfg, dense=True)
+        step = partial(graphs.staged, _lm_iteration, counter="lm_graph", cfg=cfg, dense=True)
     else:
         step = partial(_lm_iteration, cfg=cfg, dense=dense, group=group)
 

@@ -8,40 +8,23 @@ registration the host reads back the candidate (frames and score), its PnP
 inlier count and, when a local BA is due, the window's landmark count and
 one flag per LM iteration; each read is counted (``utils.timer.readback``).
 
-A registration's three fixed-shape stages, each a long chain of small
-kernels, run as CUDA graphs on a card: PnP (``pnp_stage``: the observers'
-gather, RANSAC on uniforms drawn beforehand from the run's generator, the
-Gauss-Newton polish, the inlier count), ``set_pose`` with the first
-triangulation pass, and the second pass (``triangulate_stage``). The frame
-enters them as a device tensor, so nothing of one frame is fixed in a
-graph. ``GraphCache`` runs a stage's key (device, stage, every input's shape
-and dtype, its options) eagerly on its first use, captures it on its second
-and replays it after that. On the CPU every stage runs eagerly. The two host
-decisions between the stages (the inlier gate and the local-BA cadence)
-keep them apart. The local BA reads the window's landmark count and one
-flag an LM iteration back; each LM iteration of its dense solver goes
-through the same cache (``ba.core._lm_iteration``: one graph a window
-size, replayed in every iteration of every window).
+A registration's three fixed-shape stages (``pnp_stage``, ``set_pose`` with
+the first triangulation pass, the second pass) run through ``graphs.staged``,
+the frame as a device tensor, so that every frame replays one graph.
 
 Each iteration's stages are spans of ``utils.timer`` (recorded while a
 profiler runs): ``sfm.device_loop.next_view``, ``.pnp``, ``.triangulate``
 (both passes; the first holds ``set_pose``) and ``.local_ba`` (the window
-build, ``refine_ba`` and the scatters; its count ``iterations``). A graphed
-stage counts ``graph_captures`` or ``graph_replays`` on its span, a graphed
-LM iteration ``lm_graph_captures`` or ``lm_graph_replays``.
+build, ``refine_ba`` and the scatters; its count ``iterations``).
 ``registered`` and ``pnp_failed`` are counted on the caller's span
 (``sfm.device_loop`` in ``sfm/pipeline.py``).
 """
 
 from __future__ import annotations
 
-import threading
-import weakref
-from collections import OrderedDict
-from functools import partial
-
 import torch
 
+from eacham_tpu_torch import graphs
 from eacham_tpu_torch.ba.core import BAConfig, refine_ba
 from eacham_tpu_torch.geometry.ransac import draw_uniforms
 from eacham_tpu_torch.sfm.pipeline import (
@@ -79,107 +62,6 @@ def triangulate_stage(t: dict, min_observers: int, max_repr_error: float,
     scene, _, _ = triangulate_frame(scene, t["cur"], t["pair_rows"], min_observers,
                                     max_repr_error, min_tri_angle, max_observers=max_observers)
     return {f: getattr(scene, f) for f in (_POSED if posed else ()) + _MAPPED}
-
-
-def cuda_capture(fn, static: dict):
-    """``fn(static)`` captured as a CUDA graph on a side stream, after the
-    card has caught up (a host wait once a capture). Returns (replay,
-    outputs): each ``replay()`` reruns the capture's kernels on the current
-    stream, writing the same output tensors."""
-    dev = next(iter(static.values())).device
-    torch.cuda.synchronize(dev)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.stream(torch.cuda.Stream(dev)):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            out = fn(static)
-        finally:
-            graph.capture_end()
-    return graph.replay, out
-
-
-def _stamp(v: torch.Tensor):
-    """The tensor and its count of in-place writes (None for an inference
-    tensor, which keeps no count: it is copied in on every call)."""
-    return weakref.ref(v), (None if v.is_inference() else v._version)
-
-
-class StageGraph:
-    """One stage recorded over static copies of its inputs (``record``:
-    ``cuda_capture``). A call copies in each input that is not the tensor
-    last copied, or was written in place since, replays, and returns copies
-    of the outputs: nothing returned aliases the graph's buffers."""
-
-    def __init__(self, fn, inputs: dict, record=cuda_capture):
-        self.static = {k: v.clone() for k, v in inputs.items()}
-        self.seen = {k: _stamp(v) for k, v in inputs.items()}
-        self.replay, self.out = record(fn, self.static)
-
-    def __call__(self, inputs: dict) -> dict:
-        for k, v in inputs.items():
-            ref, version = self.seen[k]
-            if ref() is not v or version is None or v._version != version:
-                self.static[k].copy_(v)
-                self.seen[k] = _stamp(v)
-        self.replay()
-        return {k: v.clone() for k, v in self.out.items()}
-
-
-class GraphCache:
-    """Stages by key, the ``size`` most recently used: a key's first use
-    runs its stage eagerly, its second captures it (``capture(fn, inputs)``
-    gives a callable of the inputs) and runs the capture, later uses run
-    that. Counts ``<counter>_captures`` and ``<counter>_replays`` on the
-    innermost span."""
-
-    def __init__(self, size: int = 8, capture=StageGraph):
-        self.size, self.capture = size, capture
-        self.entries: OrderedDict = OrderedDict()     # key -> None once seen, then the graph
-
-    def run(self, key, fn, inputs: dict, counter: str = "graph") -> dict:
-        if key not in self.entries:
-            self._keep(key, None)
-            return fn(inputs)
-        graph = self.entries[key]
-        if graph is None:
-            graph = self.capture(fn, inputs)
-            timer.add(f"{counter}_captures")
-        else:
-            timer.add(f"{counter}_replays")
-        self._keep(key, graph)
-        return graph(inputs)
-
-    def _keep(self, key, graph) -> None:
-        self.entries[key] = graph
-        self.entries.move_to_end(key)
-        while len(self.entries) > self.size:
-            self.entries.popitem(last=False)
-
-
-# one cache for the process: a request's graphs are replayed by the next
-# request of the same shapes
-_GRAPHS = GraphCache()
-
-
-def _graphable(dev: torch.device) -> bool:
-    return dev.type == "cuda"
-
-
-def _staged(stage, inputs: dict, counter: str = "graph", **options) -> dict:
-    """``stage(inputs, **options)``: through ``_GRAPHS`` on a CUDA card,
-    keyed by the device (the first input's), the thread (a graph's static
-    buffers serve one thread), the stage, every input's shape and dtype and
-    the options, its captures and replays counted under ``counter``;
-    eagerly elsewhere. Besides the sweep's stages it runs the BA's LM
-    iteration (``ba.core._lm_iteration``, counter ``lm_graph``) and a
-    sharded BA's dense CG (``ba.core._jacobi_cg``)."""
-    dev = next(iter(inputs.values())).device
-    if not _graphable(dev):
-        return stage(inputs, **options)
-    key = (dev, threading.get_ident(), stage.__name__,
-           tuple((k, tuple(v.shape), v.dtype) for k, v in inputs.items()),
-           tuple(sorted(options.items())))
-    return _GRAPHS.run(key, partial(stage, **options), inputs, counter)
 
 
 @torch.no_grad()
@@ -230,8 +112,9 @@ def registration_sweep_step(
         frame = {"cur": view[1:2], "pair_rows": fp_tbl[cur]}
         with timer.span("sfm.device_loop.pnp"):
             u = draw_uniforms(generator, (), n_hyp_pnp, K, dev)
-            out = _staged(pnp_stage, {**scene._asdict(), **frame, "prev": view[0:1], "u": u},
-                          n_hyp=n_hyp_pnp, pair_only=pnp_pair_only)
+            out = graphs.staged(pnp_stage,
+                                {**scene._asdict(), **frame, "prev": view[0:1], "u": u},
+                                n_hyp=n_hyp_pnp, pair_only=pnp_pair_only)
             n_inl = timer.readback(int, out["n_inl"])
         if n_inl >= min_pnp_inliers:
             scene = _register(scene, cur, frame, out["T"], it, max_repr_error, min_tri_angle,
@@ -255,8 +138,8 @@ def _register(scene, cur, frame, T, it, max_repr_error, min_tri_angle, min_ba_la
     tri = dict(max_repr_error=max_repr_error, min_tri_angle=min_tri_angle,
                max_observers=max_observers)
     with timer.span("sfm.device_loop.triangulate"):
-        scene = scene._replace(**_staged(triangulate_stage, {**scene._asdict(), **frame, "T": T},
-                                         min_observers=2, **tri))
+        scene = scene._replace(**graphs.staged(
+            triangulate_stage, {**scene._asdict(), **frame, "T": T}, min_observers=2, **tri))
     # local BA is a large share of the sweep's cost; ba_every > 1 spreads it over
     # registrations, and the frames it skips are refined by the next window
     # that holds them and by the interim and global BA
@@ -278,8 +161,8 @@ def _register(scene, cur, frame, T, it, max_repr_error, min_tri_angle, min_ba_la
                 scene = scatter_window_points(scene, lm_list, lm_on, points)
                 scene = scene._replace(intr=intr)
     with timer.span("sfm.device_loop.triangulate"):
-        scene = scene._replace(**_staged(triangulate_stage, {**scene._asdict(), **frame},
-                                         min_observers=3, **tri))
+        scene = scene._replace(**graphs.staged(
+            triangulate_stage, {**scene._asdict(), **frame}, min_observers=3, **tri))
     return scene
 
 

@@ -1,6 +1,6 @@
 """The BA's LM iteration as one CUDA graph (``eacham_tpu_torch.ba.core``:
-``_lm_iteration`` through ``sfm.device_loop._staged``) and the fixed-shape
-layout that lets every problem of one size share its graph.
+``_lm_iteration`` through ``graphs.staged``) and the fixed-shape layout that
+lets every problem of one size share its graph.
 
 On the CPU: the fixed-shape ``_layout`` against its earlier form (copied
 here, the landmark order cut to the live rows) sum for sum, bit for bit,
@@ -8,8 +8,8 @@ with masked rows, in equal runs and in slots; ``refine_ba`` through the
 graph cache with a capturer that reruns the iteration into fixed output
 buffers, as a replay does, against the eager run (LM and dogleg, dense CG
 and Cholesky); two problems with different live observations on one key;
-the PCG solver and a process group, which never put the iteration into the
-cache. On a CUDA card (``cuda``; no JAX is imported here): the graphed
+the PCG solver and a process group, which never reach the cache; the dense
+CG's plain-tensor form against its earlier dict form. On a CUDA card (``cuda``; no JAX is imported here): the graphed
 ``refine_ba`` against the eager one, bit for bit, and a replayed iteration
 that waits for the card nowhere:
 
@@ -25,10 +25,11 @@ import torch
 import torch.distributed as dist
 from torch.profiler import ProfilerActivity, profile
 
-from eacham_tpu_torch import convert
+from eacham_tpu_torch import convert, graphs
 from eacham_tpu_torch.ba import core as tba
-from eacham_tpu_torch.sfm import device_loop
 from eacham_tpu_torch.utils import timer
+
+from test_torch_graphs import _rerun_into
 
 torch.set_num_threads(2)
 
@@ -108,17 +109,10 @@ def test_fixed_shape_layout_keeps_every_segment_sum(shuffle, drop):
 
 # ---- refine_ba through the cache ----------------------------------------------------
 
-def _rerun_into(fn, static):
-    """A CPU stand-in for a capture: the outputs are fixed tensors that each
-    replay overwrites, as a graph's are."""
-    out = fn(static)
-    return (lambda: [out[k].copy_(v) for k, v in fn(static).items()]), out
-
-
 def _stub_cache(monkeypatch):
-    cache = device_loop.GraphCache(capture=partial(device_loop.StageGraph, record=_rerun_into))
-    monkeypatch.setattr(device_loop, "_graphable", lambda dev: True)
-    monkeypatch.setattr(device_loop, "_GRAPHS", cache)
+    cache = graphs.GraphCache(capture=partial(graphs.StageGraph, record=_rerun_into))
+    monkeypatch.setattr(graphs, "graphable", lambda dev: True)
+    monkeypatch.setattr(graphs, "CACHE", cache)
     return cache
 
 
@@ -205,16 +199,50 @@ def test_pcg_never_reaches_the_cache(method, monkeypatch):
 
 def test_a_process_group_never_puts_the_iteration_in_the_cache(one_rank, monkeypatch):
     """Under a group (its all-reduces run inside the iteration) the
-    iteration runs eagerly; the dense CG alone takes the cache, as it did
-    before the iteration was graphed; the bits are ``refine_ba``'s."""
+    iteration, its dense CG included, runs eagerly: nothing reaches the
+    cache and nothing is counted; the bits are ``refine_ba``'s."""
     p = _problem()
     cfg = tba.BAConfig(max_iters=8, solver="dense")
     plain, _ = _ba(p, cfg)
     cache = _stub_cache(monkeypatch)
     out, counts = _ba(p, cfg, group=one_rank)
     _assert_same_ba(out, plain)
-    assert _stages(cache) == ["_jacobi_cg"]
-    assert counts == {"graph_captures": 1, "graph_replays": out[3]["iterations"] - 2}
+    assert counts == {} and not cache.entries
+
+
+def old_jacobi_cg(t, iters):
+    """``_jacobi_cg`` as it was while a group's CG went through the cache
+    alone: a dict of ``A`` and ``b`` in, ``{"x"}`` out."""
+    A, b = t["A"], t["b"]
+    diag = torch.clamp(A.diagonal(), min=1e-12)
+    x = torch.zeros_like(b)
+    res = b
+    z = b / diag
+    pvec = z
+    rz = res @ z
+    for _ in range(iters):
+        Ap = A @ pvec
+        alpha = rz / torch.clamp(pvec @ Ap, min=1e-20)
+        x = x + alpha * pvec
+        res = res - alpha * Ap
+        z = res / diag
+        rz2 = res @ z
+        pvec = z + (rz2 / torch.clamp(rz, min=1e-20)) * pvec
+        rz = rz2
+    return {"x": x}
+
+
+def test_jacobi_cg_of_tensors_keeps_the_dict_forms_bits():
+    """On fixed SPD systems of a local window's and a global BA's order,
+    badly scaled as the damped reduced camera system is."""
+    g = torch.Generator().manual_seed(11)
+    for n in (98, 602):
+        M = torch.randn((n, n), generator=g)
+        A = M @ M.t() / n + torch.diag(torch.rand(n, generator=g) * 1e3 + 1e-2)
+        b = torch.randn(n, generator=g)
+        for iters in (1, 64):
+            assert torch.equal(tba._jacobi_cg(A, b, iters),
+                               old_jacobi_cg({"A": A, "b": b}, iters)["x"])
 
 
 # ---- on the card ----------------------------------------------------------------------
@@ -231,9 +259,9 @@ def test_graphed_refine_ba_is_the_eager_one_on_the_card(method, cg_iters, monkey
     _card()
     cfg = tba.BAConfig(max_iters=12, tolerance=1e-9, solver="dense", method=method,
                        dense_cg_iters=cg_iters)
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache(size=0))
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache(size=0))
     eager = [_ba(_problem(seed=s, device="cuda"), cfg)[0] for s in (0, 1)]
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache())
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache())
     first, c1 = _ba(_problem(seed=0, device="cuda"), cfg)
     second, c2 = _ba(_problem(seed=1, device="cuda"), cfg)
     _assert_same_ba(first, eager[0])
@@ -248,21 +276,21 @@ def test_a_replayed_iteration_waits_for_the_card_nowhere(monkeypatch):
     replay, copies out) under ``set_sync_debug_mode("error")``: only the
     read of ``done``, after it, waits."""
     _card()
-    cache = device_loop.GraphCache()
-    monkeypatch.setattr(device_loop, "_GRAPHS", cache)
+    cache = graphs.GraphCache()
+    monkeypatch.setattr(graphs, "CACHE", cache)
     p = _problem(device="cuda")
     cfg = tba.BAConfig(max_iters=4, tolerance=0.0, solver="dense")
     poses, points, intr, info = tba.refine_ba(p, cfg)
     assert info["iterations"] == 4
-    assert [type(g) for g in cache.entries.values()] == [device_loop.StageGraph]
+    assert [type(g) for g in cache.entries.values()] == [graphs.StageGraph]
     problem = tba._problem_tensors(p, tba._layout(p, pairs=True))
     state = {"poses": poses, "points": points, "intr": intr, "lam": info["lambda"],
              "cost": info["final_cost"]}
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        out = device_loop._staged(tba._lm_iteration, {**state, **problem}, counter="lm_graph",
-                                  cfg=cfg, dense=True)
+        out = graphs.staged(tba._lm_iteration, {**state, **problem}, counter="lm_graph",
+                            cfg=cfg, dense=True)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert len(cache.entries) == 1

@@ -5,12 +5,11 @@ triangulation pass, and the second pass.
 On the CPU: the sync-free forms of ``rt_to_mat``, ``gauss_newton_pose``,
 ``set_pose`` and ``alloc_landmarks`` against their earlier forms (copied
 here) bit for bit; the stage entry points with the frame as a tensor against
-``pnp_register`` / ``triangulate_frame`` with ints; the graph cache's keys,
-its capture on a key's second use and its bound, with a stub capturer; and
-``run_sfm`` on the sweep test's 12 frames, bit for bit before and after, and
-through the cache with a capturer that reruns the stage into fixed output
-buffers as a replay does; the dense BA's LM iteration, CG and all
-(``ba.core._lm_iteration``), through the same cache. On a CUDA card
+``pnp_register`` / ``triangulate_frame`` with ints; ``run_sfm`` on the sweep
+test's 12 frames, bit for bit before and after, and through the graph cache
+(``eacham_tpu_torch.graphs``) with a capturer that reruns the stage into
+fixed output buffers as a replay does; the dense BA's LM iteration, CG and
+all (``ba.core._lm_iteration``), through the same cache. On a CUDA card
 (``cuda``): the graphed sweep, its local and global BAs' iterations
 replayed, against an eager one, a returned scene that a later request's
 replays leave alone, a two-chunk stream that replays, and the graphed
@@ -23,6 +22,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from eacham_tpu_torch import graphs
 from eacham_tpu_torch.geometry import pnp, se3
 from eacham_tpu_torch.geometry.ransac import draw_uniforms
 from eacham_tpu_torch.sfm import device_loop, pipeline, scene as scene_mod, triangulate
@@ -31,6 +31,8 @@ from eacham_tpu_torch.sfm.scene import frame_pair_table
 from eacham_tpu_torch.sfm.streaming import StreamingReconstructor
 from eacham_tpu_torch.utils import timer
 from eacham_tpu_torch.utils.synthetic import make_blob_scene, orbit_poses, render_view
+
+from test_torch_graphs import _rerun_into
 
 torch.set_num_threads(2)
 
@@ -305,118 +307,13 @@ def test_triangulate_stage_with_tensor_frames_is_triangulate_frame(midway, min_o
     assert int(n_new) > 0
 
 
-# ---- the cache --------------------------------------------------------------------
-
-class StubGraph:
-    """Records its captures; a call reruns the stage."""
-
-    made: list = []
-
-    def __init__(self, fn, inputs):
-        self.fn = fn
-        self.made.append(sorted(inputs))
-
-    def __call__(self, inputs):
-        return {"y": self.fn(inputs)["y"] + 1000}
-
-
-def test_cache_runs_eager_then_captures_then_replays():
-    StubGraph.made = []
-    cache = device_loop.GraphCache(size=3, capture=StubGraph)
-    eager = []
-
-    def fn(t):
-        eager.append(1)
-        return {"y": t["x"] * 2}
-
-    x = torch.ones(2)
-    assert cache.run("a", fn, {"x": x})["y"].tolist() == [2, 2]     # first use: eager
-    assert len(eager) == 1 and StubGraph.made == [] and cache.entries["a"] is None
-    assert cache.run("a", fn, {"x": x})["y"].tolist() == [1002, 1002]   # second: captured
-    assert StubGraph.made == [["x"]]
-    assert cache.run("a", fn, {"x": x})["y"].tolist() == [1002, 1002]   # then replayed
-    assert StubGraph.made == [["x"]]
-    for k in ("b", "c", "d"):
-        cache.run(k, fn, {"x": x})
-    # the bound: the least recently used key went; it starts over, eagerly
-    assert list(cache.entries) == ["b", "c", "d"]
-    assert cache.run("a", fn, {"x": x})["y"].tolist() == [2, 2]
-    assert "b" not in cache.entries and len(cache.entries) == 3
-    # a cache of size 0 runs everything eagerly
-    zero = device_loop.GraphCache(size=0, capture=StubGraph)
-    for _ in range(3):
-        assert zero.run("a", fn, {"x": x})["y"].tolist() == [2, 2]
-    assert StubGraph.made == [["x"]] and not zero.entries
-
-
-def test_cache_counts_captures_and_replays_on_the_span():
-    StubGraph.made = []
-    cache = device_loop.GraphCache(capture=StubGraph)
-    timer.clear()
-    with profile(activities=[ProfilerActivity.CPU]):
-        with timer.span("stage"):
-            for _ in range(4):
-                cache.run("k", lambda t: {"y": t["x"]}, {"x": torch.zeros(1)})
-    (rec,) = timer.records()
-    timer.clear()
-    assert rec["counts"] == {"graph_captures": 1, "graph_replays": 2}
-
-
-def test_keys_follow_shapes_dtypes_and_options(monkeypatch):
-    keys = []
-
-    class Keys:
-        def run(self, key, fn, inputs, counter):
-            keys.append(key)
-            return fn(inputs)
-
-    assert device_loop._graphable(torch.device("cpu")) is False
-    monkeypatch.setattr(device_loop, "_GRAPHS", Keys())
-    monkeypatch.setattr(device_loop, "_graphable", lambda dev: True)
-
-    def stage(t, a):
-        return {"y": t["cur"] + a}
-
-    base = {"cur": torch.zeros(1, dtype=torch.int64), "x": torch.zeros(4, 3)}
-    device_loop._staged(stage, base, a=1)
-    device_loop._staged(stage, {**base, "cur": torch.ones(1, dtype=torch.int64)}, a=1)
-    device_loop._staged(stage, {**base, "x": torch.zeros(5, 3)}, a=1)
-    device_loop._staged(stage, {**base, "x": torch.zeros(4, 3, dtype=torch.float64)}, a=1)
-    device_loop._staged(stage, base, a=2)
-    assert keys[0] == keys[1]          # another frame, the same graph
-    assert len(set(keys[1:])) == 4     # a shape, a dtype or an option: a new key
-
-
-def _rerun_into(fn, static):
-    """A CPU stand-in for a capture: the outputs are fixed tensors that each
-    replay overwrites, as a graph's are."""
-    out = fn(static)
-    return (lambda: [out[k].copy_(v) for k, v in fn(static).items()]), out
-
-
-def test_static_inputs_follow_new_and_rewritten_tensors():
-    fixed = torch.arange(4.0)
-    g = device_loop.StageGraph(lambda t: {"y": t["a"] + t["b"]},
-                               {"a": fixed, "b": torch.ones(4)}, record=_rerun_into)
-    first = g({"a": fixed, "b": torch.ones(4)})
-    assert first["y"].tolist() == [1, 2, 3, 4]
-    fixed.add_(10)                      # written in place: copied in again
-    second = g({"a": fixed, "b": torch.zeros(4)})
-    assert second["y"].tolist() == [10, 11, 12, 13]
-    assert first["y"].tolist() == [1, 2, 3, 4]     # no output aliases the graph's
-    # inference tensors keep no count of in-place writes: copied in on every call
-    with torch.inference_mode():
-        a = torch.arange(4.0)
-        g = device_loop.StageGraph(lambda t: {"y": t["a"] * 2}, {"a": a}, record=_rerun_into)
-        a.add_(1)
-        assert g({"a": a})["y"].tolist() == [2, 4, 6, 8]
-
+# ---- through the cache ------------------------------------------------------------
 
 def test_run_sfm_through_the_cache_keeps_its_bits(tracks, monkeypatch):
     eager = [_fields(_sfm(tracks, seed=s)[0]) for s in (0, 1)]
-    monkeypatch.setattr(device_loop, "_graphable", lambda dev: True)
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache(
-        capture=partial(device_loop.StageGraph, record=_rerun_into)))
+    monkeypatch.setattr(graphs, "graphable", lambda dev: True)
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache(
+        capture=partial(graphs.StageGraph, record=_rerun_into)))
     timer.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         first, stats = _sfm(tracks, seed=0)
@@ -477,9 +374,9 @@ def test_dense_ba_cg_through_the_cache_keeps_its_bits(method, monkeypatch):
     second, replayed after; the result is the eager run's, bit for bit."""
     eager, counts = _dense_ba(method)
     assert counts == {}          # the CPU: eager throughout
-    monkeypatch.setattr(device_loop, "_graphable", lambda dev: True)
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache(
-        capture=partial(device_loop.StageGraph, record=_rerun_into)))
+    monkeypatch.setattr(graphs, "graphable", lambda dev: True)
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache(
+        capture=partial(graphs.StageGraph, record=_rerun_into)))
     graphed, counts = _dense_ba(method)
     assert eager[3]["iterations"] >= 3
     _assert_same_ba(graphed, eager)
@@ -508,9 +405,9 @@ def _lm_replays(recs):
 @pytest.mark.cuda
 def test_graphed_sweep_is_the_eager_sweep_on_the_card(tracks, monkeypatch):
     _card()
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache(size=0))
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache(size=0))
     eager = [_fields(_sfm(tracks, "cuda", seed=s)[0]) for s in (0, 1)]
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache())
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache())
     timer.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         first, stats = _sfm(tracks, "cuda", seed=0)
@@ -530,9 +427,9 @@ def test_graphed_sweep_is_the_eager_sweep_on_the_card(tracks, monkeypatch):
 @pytest.mark.cuda
 def test_a_two_chunk_stream_replays_on_the_card(frames, monkeypatch):
     _card()
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache(size=0))
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache(size=0))
     eager = _fields(_stream(frames, "cuda"))
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache())
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache())
     timer.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         graphed = _fields(_stream(frames, "cuda"))
@@ -546,9 +443,9 @@ def test_a_two_chunk_stream_replays_on_the_card(frames, monkeypatch):
 @pytest.mark.parametrize("method", ["lm", "dogleg"])
 def test_dense_ba_cg_graph_is_the_eager_solve_on_the_card(method, monkeypatch):
     _card()
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache(size=0))
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache(size=0))
     eager, _ = _dense_ba(method, "cuda")
-    monkeypatch.setattr(device_loop, "_GRAPHS", device_loop.GraphCache())
+    monkeypatch.setattr(graphs, "CACHE", graphs.GraphCache())
     graphed, counts = _dense_ba(method, "cuda")
     assert counts == {"lm_graph_captures": 1,
                       "lm_graph_replays": eager[3]["iterations"] - 2}
